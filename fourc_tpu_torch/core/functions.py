@@ -1,0 +1,237 @@
+"""Symbolic space-time functions (deck FUNCT entries).
+
+Counterpart of fourc_tpu/core/functions.py: the same tokenizer and
+recursive-descent parser, evaluated with numpy on host floats and arrays.
+Loads and prescribed values depend on time, which the host knows, so the
+device never evaluates an expression.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass, field
+
+import numpy as np
+
+_TOKEN_RE = re.compile(
+    r"\s*(?:(?P<num>\d+\.?\d*(?:[eE][+-]?\d+)?|\.\d+(?:[eE][+-]?\d+)?)"
+    r"|(?P<name>[A-Za-z_][A-Za-z_0-9]*)"
+    r"|(?P<op>\*\*|<=|>=|[-+*/^(),<>]))"
+)
+
+_FUNCS = {
+    "sin": np.sin, "cos": np.cos, "tan": np.tan,
+    "asin": np.arcsin, "acos": np.arccos, "atan": np.arctan,
+    "sinh": np.sinh, "cosh": np.cosh, "tanh": np.tanh,
+    "exp": np.exp, "log": np.log, "log10": np.log10, "sqrt": np.sqrt,
+    "abs": np.abs, "fabs": np.abs,
+    "heaviside": lambda x: np.where(x > 0, 1.0, 0.0),
+    "atan2": np.arctan2, "pow": np.power,
+    "min": np.minimum, "max": np.maximum,
+}
+
+_CONSTS = {"pi": math.pi, "e": math.e}
+
+
+def _tokenize(src: str):
+    out, pos = [], 0
+    while pos < len(src):
+        m = _TOKEN_RE.match(src, pos)
+        if not m or m.end() == pos:
+            if src[pos:].strip() == "":
+                break
+            raise ValueError(f"cannot tokenize expression at: {src[pos:]!r}")
+        pos = m.end()
+        if m.group("num") is not None:
+            out.append(("num", float(m.group("num"))))
+        elif m.group("name") is not None:
+            out.append(("name", m.group("name")))
+        else:
+            out.append(("op", m.group("op")))
+    out.append(("end", None))
+    return out
+
+
+class _Parser:
+    """Recursive descent: comparisons, + -, * /, unary -, ^ (right assoc),
+    calls."""
+
+    def __init__(self, tokens):
+        self.toks = tokens
+        self.i = 0
+
+    def peek(self):
+        return self.toks[self.i]
+
+    def next(self):
+        t = self.toks[self.i]
+        self.i += 1
+        return t
+
+    def expect(self, op):
+        k, v = self.next()
+        if k != "op" or v != op:
+            raise ValueError(f"expected {op!r}, got {v!r}")
+
+    def parse(self):
+        e = self.compare()
+        if self.peek()[0] != "end":
+            raise ValueError(f"trailing tokens: {self.toks[self.i:]}")
+        return e
+
+    def compare(self):
+        node = self.expr()
+        while self.peek() in (("op", "<"), ("op", ">"), ("op", "<="),
+                              ("op", ">=")):
+            op = self.next()[1]
+            node = (op, node, self.expr())
+        return node
+
+    def expr(self):
+        node = self.term()
+        while self.peek() in (("op", "+"), ("op", "-")):
+            op = self.next()[1]
+            node = (op, node, self.term())
+        return node
+
+    def term(self):
+        node = self.unary()
+        while self.peek() in (("op", "*"), ("op", "/")):
+            op = self.next()[1]
+            node = (op, node, self.unary())
+        return node
+
+    def unary(self):
+        if self.peek() == ("op", "-"):
+            self.next()
+            return ("neg", self.unary())
+        if self.peek() == ("op", "+"):
+            self.next()
+            return self.unary()
+        return self.power()
+
+    def power(self):
+        base = self.atom()
+        if self.peek() in (("op", "^"), ("op", "**")):
+            self.next()
+            return ("^", base, self.unary())
+        return base
+
+    def atom(self):
+        kind, val = self.next()
+        if kind == "num":
+            return ("const", val)
+        if kind == "name":
+            if self.peek() == ("op", "("):
+                self.next()
+                args = [self.compare()]
+                while self.peek() == ("op", ","):
+                    self.next()
+                    args.append(self.compare())
+                self.expect(")")
+                if val not in _FUNCS:
+                    raise ValueError(f"unknown function {val!r}")
+                return ("call", val, args)
+            if val in _CONSTS:
+                return ("const", _CONSTS[val])
+            return ("var", val)
+        if kind == "op" and val == "(":
+            e = self.compare()
+            self.expect(")")
+            return e
+        raise ValueError(f"unexpected token {val!r}")
+
+
+_BINARY = {
+    "+": lambda a, b: a + b,
+    "-": lambda a, b: a - b,
+    "*": lambda a, b: a * b,
+    "/": lambda a, b: a / b,
+    "^": lambda a, b: a ** b,
+    "<": lambda a, b: np.where(a < b, 1.0, 0.0),
+    ">": lambda a, b: np.where(a > b, 1.0, 0.0),
+    "<=": lambda a, b: np.where(a <= b, 1.0, 0.0),
+    ">=": lambda a, b: np.where(a >= b, 1.0, 0.0),
+}
+
+
+def _eval(node, env):
+    tag = node[0]
+    if tag == "const":
+        return node[1]
+    if tag == "var":
+        try:
+            return env[node[1]]
+        except KeyError:
+            raise ValueError(
+                f"unknown variable {node[1]!r} in expression") from None
+    if tag == "neg":
+        return -_eval(node[1], env)
+    if tag == "call":
+        return _FUNCS[node[1]](*[_eval(a, env) for a in node[2]])
+    return _BINARY[tag](_eval(node[1], env), _eval(node[2], env))
+
+
+@dataclass
+class SymbolicExpression:
+    """A parsed expression of x, y, z, t (numpy-broadcasting)."""
+
+    src: str
+    ast: tuple = field(repr=False, default=None)
+
+    def __post_init__(self):
+        if self.ast is None:
+            self.ast = _Parser(_tokenize(self.src)).parse()
+
+    def __call__(self, x=0.0, y=0.0, z=0.0, t=0.0, **params):
+        env = {"x": x, "y": y, "z": z, "t": t}
+        env.update(params)
+        return _eval(self.ast, env)
+
+
+@dataclass
+class FunctionOfSpaceTime:
+    """A FUNCT entry: one expression per component."""
+
+    components: list
+
+    @classmethod
+    def from_spec(cls, spec) -> "FunctionOfSpaceTime":
+        if isinstance(spec, str):
+            spec = [spec]
+        return cls([SymbolicExpression(s) for s in spec])
+
+    def __call__(self, coords, t, component=None):
+        """coords: (..., dim) array; returns (..., ncomp) or (...,)."""
+        coords = np.asarray(coords, dtype=np.float64)
+        x = coords[..., 0]
+        y = coords[..., 1] if coords.shape[-1] > 1 else 0.0 * x
+        z = coords[..., 2] if coords.shape[-1] > 2 else 0.0 * x
+
+        def ev(c):
+            return np.broadcast_to(np.asarray(c(x, y, z, float(t)),
+                                              np.float64), x.shape)
+
+        if component is not None:
+            return ev(self.components[min(component,
+                                          len(self.components) - 1)])
+        return np.stack([ev(c) for c in self.components], axis=-1)
+
+
+class FunctionManager:
+    """FUNCT table by positive integer id; id 0 / None means constant 1."""
+
+    def __init__(self):
+        self._funcs: dict[int, FunctionOfSpaceTime] = {}
+
+    def add(self, fid: int, spec):
+        self._funcs[int(fid)] = FunctionOfSpaceTime.from_spec(spec)
+
+    def get(self, fid) -> FunctionOfSpaceTime:
+        if fid in (None, 0, "none"):
+            return FunctionOfSpaceTime([SymbolicExpression("1")])
+        return self._funcs[int(fid)]
+
+    def __contains__(self, fid):
+        return int(fid) in self._funcs

@@ -1,0 +1,90 @@
+"""Element geometry helpers and leading-index 3x3 algebra.
+
+Counterpart of the subset of fourc_tpu/ops/common.py that the lattice slice
+uses.  The isoparametric helpers run once at setup on the host in float64
+(numpy).  The ``*3l`` helpers act on torch tensors whose two LEADING axes
+are the 3x3 matrix axes, broadcasting over the rest.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# -- host geometry (numpy, float64) -----------------------------------------
+
+
+def iso_gradients(Xe, dN):
+    """Xe (E, nen, 3) reference coords, dN (ngp, nen, 3) parametric grads.
+    Returns G (E, ngp, nen, 3) cartesian grads and detJ (E, ngp)."""
+    J = np.einsum("eai,gaj->egij", Xe, dN)  # J[e,g,i,j] = dx_i / dxi_j
+    detJ = np.linalg.det(J)
+    G = np.einsum("gaj,egji->egai", dN, np.linalg.inv(J))
+    return G, detJ
+
+
+def interp_field(ue, N):
+    """(E, nen, c), (ngp, nen) -> (E, ngp, c)."""
+    return np.einsum("eac,ga->egc", ue, N)
+
+
+def weighted(detJ, weights):
+    """detJ (E, ngp) times the Gauss weights (ngp,)."""
+    return detJ * np.asarray(weights)[None, :]
+
+
+def surface_measure(Xf, dNf):
+    """Area jacobian and unit normal of 3D faces at Gauss points.
+    Xf (F, nen_f, 3), dNf (ngp, nen_f, 2) -> (F, ngp), (F, ngp, 3)."""
+    t = np.einsum("eai,gap->egip", Xf, dNf)
+    n = np.cross(t[..., 0], t[..., 1])
+    dA = np.linalg.norm(n, axis=-1)
+    return dA, n / (dA[..., None] + 1e-300)
+
+
+# -- leading-index 3x3 algebra (torch) --------------------------------------
+
+
+def tr3l(a):
+    """(3, 3, ...) -> (...)."""
+    return a[0, 0] + a[1, 1] + a[2, 2]
+
+
+def det3l(a):
+    return (a[0, 0] * (a[1, 1] * a[2, 2] - a[1, 2] * a[2, 1])
+            - a[0, 1] * (a[1, 0] * a[2, 2] - a[1, 2] * a[2, 0])
+            + a[0, 2] * (a[1, 0] * a[2, 1] - a[1, 1] * a[2, 0]))
+
+
+def cof3l(a):
+    """Cofactor matrix (adj^T) of a (3, 3, ...) tensor."""
+    rows = [
+        [a[1, 1] * a[2, 2] - a[1, 2] * a[2, 1],
+         a[1, 2] * a[2, 0] - a[1, 0] * a[2, 2],
+         a[1, 0] * a[2, 1] - a[1, 1] * a[2, 0]],
+        [a[0, 2] * a[2, 1] - a[0, 1] * a[2, 2],
+         a[0, 0] * a[2, 2] - a[0, 2] * a[2, 0],
+         a[0, 1] * a[2, 0] - a[0, 0] * a[2, 1]],
+        [a[0, 1] * a[1, 2] - a[0, 2] * a[1, 1],
+         a[0, 2] * a[1, 0] - a[0, 0] * a[1, 2],
+         a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]],
+    ]
+    return torch.stack([torch.stack(r) for r in rows])
+
+
+def inv3l(a, det=None):
+    """Inverse via the adjugate: (3, 3, ...) -> (3, 3, ...)."""
+    if det is None:
+        det = det3l(a)
+    return cof3l(a).transpose(0, 1) / det
+
+
+def eye3l(like):
+    """eye(3) broadcast against a (3, 3, ...) tensor."""
+    return torch.eye(3, dtype=like.dtype, device=like.device).reshape(
+        (3, 3) + (1,) * (like.dim() - 2))
+
+
+def matmul3l(a, b):
+    """(3, 3, ...) @ (3, 3, ...) over the leading axes."""
+    return torch.einsum("ik...,kj...->ij...", a, b)

@@ -1,0 +1,249 @@
+"""Uniform hex8 lattice: layout, stencil collapse and the kernels' twins.
+
+Counterpart of fourc_tpu/ops/lattice.py.  On a uniform hex8 lattice local
+node a of element (i, j, k) is lattice point (i, j, k) + offset_a, so the
+internal force, the tangent apply, the consistent mass and every GMG level
+operator are 3D stencils over the node lattice.
+
+Layout: one padded, component-first lattice ``(3, px+2, py+2, pz+2)`` with a
+zero ghost shell on every side.  Real node (i, j, k) lives at
+``[:, 1+i, 1+j, 1+k]``.  Every operator here and in ops/lattice_kernels.py
+takes and returns this layout and leaves the ghost shell zero.
+
+The functions ``stencil_matvec_ref``, ``neo_force_ref`` and ``neo_jvp_ref``
+are the plain PyTorch twins of the three CUDA kernels: the same math, in
+shift form over the real element grid (no ghost-element masks needed).
+``neo_jvp_ref`` is the hand-propagated dual of the force, not autograd, so
+it checks the same algebra the tangent kernel runs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fourc_tpu_torch.core.mesh import HEX8_OFFSETS
+from fourc_tpu_torch.ops import common as gm
+
+
+@dataclass(frozen=True)
+class LatticeSpec:
+    """One structured hex8 block: real node counts and element spacings."""
+
+    pshape: tuple  # (px, py, pz)
+    h: tuple  # (hx, hy, hz)
+
+    @property
+    def nshape(self):
+        return tuple(p - 1 for p in self.pshape)
+
+    @property
+    def lshape(self):
+        """Shape of the padded lattice layout."""
+        return (3,) + tuple(p + 2 for p in self.pshape)
+
+    @property
+    def ndof(self):
+        return int(np.prod(self.pshape)) * 3
+
+
+def detect_lattice(disc) -> LatticeSpec | None:
+    """LatticeSpec of a single-block uniform axis-aligned hex8 box, else
+    None (same test as the reference)."""
+    ss = disc.structured_shape
+    if ss is None or len(ss) != 4 or ss[3] != 1 or len(disc.blocks) != 1:
+        return None
+    if next(iter(disc.blocks.values())).cell != "hex8":
+        return None
+    px, py, pz = ss[0] + 1, ss[1] + 1, ss[2] + 1
+    coords = np.asarray(disc.coords)
+    if coords.shape[0] != px * py * pz:
+        return None
+    lat = coords.reshape(px, py, pz, 3)
+    hx = lat[1, 0, 0] - lat[0, 0, 0]
+    hy = lat[0, 1, 0] - lat[0, 0, 0]
+    hz = lat[0, 0, 1] - lat[0, 0, 0]
+    off_axis = (hx[1], hx[2], hy[0], hy[2], hz[0], hz[1])
+    if max(abs(float(x)) for x in off_axis) >= 1e-12:
+        return None
+    h = (float(hx[0]), float(hy[1]), float(hz[2]))
+    if min(h) <= 0:
+        return None
+    ii, jj, kk = np.meshgrid(np.arange(px), np.arange(py), np.arange(pz),
+                             indexing="ij")
+    want = lat[0, 0, 0] + np.stack([ii * h[0], jj * h[1], kk * h[2]], axis=-1)
+    eps = 64 * np.finfo(np.float32).eps * max(1.0, np.abs(coords).max())
+    if not np.allclose(lat, want, rtol=0.0, atol=eps):
+        return None
+    return LatticeSpec(pshape=(px, py, pz), h=h)
+
+
+def to_lattice(v: torch.Tensor, spec: LatticeSpec) -> torch.Tensor:
+    """Flat node-major dof vector -> padded component-first lattice."""
+    px, py, pz = spec.pshape
+    x = v.reshape(px, py, pz, 3).permute(3, 0, 1, 2)
+    return F.pad(x, (1, 1, 1, 1, 1, 1))
+
+
+def from_lattice(x: torch.Tensor, spec: LatticeSpec) -> torch.Tensor:
+    """Padded lattice -> flat node-major dof vector."""
+    return x[:, 1:-1, 1:-1, 1:-1].permute(1, 2, 3, 0).reshape(-1)
+
+
+def collapse_stencil(Ke):
+    """One congruent-element (24, 24) matrix -> (8, 3, 8, 3) node-block
+    stencil K[a, i, b, j] in hex8 node order."""
+    Ke = np.asarray(Ke)
+    if Ke.shape != (24, 24):
+        raise ValueError(f"expected a (24, 24) element matrix, got {Ke.shape}")
+    return Ke.reshape(8, 3, 8, 3)
+
+
+def uniform_geometry(cell, spec: LatticeSpec):
+    """Cartesian shape gradients G (ngp, 8, 3), G[g,a,j] = dN[g,a,j] 2/h_j,
+    and weighted jacobians wdet (ngp,) = w_g hx hy hz / 8 (float64)."""
+    h = np.asarray(spec.h, np.float64)
+    G = np.asarray(cell.dN, np.float64) * (2.0 / h)[None, None, :]
+    wdet = np.asarray(cell.gauss_weights, np.float64) * float(np.prod(h)) / 8
+    return G, wdet
+
+
+def assemble_uniform(vals, nshape):
+    """Sum one per-element (8, 3) node table over every element of a
+    uniform lattice with ``nshape`` elements -> (px, py, pz, 3), numpy."""
+    nx, ny, nz = nshape
+    out = np.zeros((nx + 1, ny + 1, nz + 1, 3))
+    for a, (ox, oy, oz) in enumerate(HEX8_OFFSETS):
+        out[ox:ox + nx, oy:oy + ny, oz:oz + nz] += vals[a]
+    return out
+
+
+def material_model(material) -> str | None:
+    """Kernel material model name, or None if the law has no kernel."""
+    from fourc_tpu_torch.materials.elastic import NeoHooke, StVenantKirchhoff
+
+    if isinstance(material, NeoHooke):
+        return "neohooke"
+    if isinstance(material, StVenantKirchhoff):
+        return "svk"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins of the CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _corners(x):
+    """The 8 corner values of every real element: list of (3, nx, ny, nz)."""
+    _, X, Y, Z = x.shape
+    nx, ny, nz = X - 3, Y - 3, Z - 3
+    return [x[:, 1 + ox:1 + ox + nx, 1 + oy:1 + oy + ny, 1 + oz:1 + oz + nz]
+            for ox, oy, oz in HEX8_OFFSETS]
+
+
+def _assemble(fe, like):
+    """Element vectors fe (8, 3, nx, ny, nz) -> summed into node lattice."""
+    out = torch.zeros_like(like)
+    nx, ny, nz = fe.shape[2:]
+    for a, (ox, oy, oz) in enumerate(HEX8_OFFSETS):
+        out[:, 1 + ox:1 + ox + nx, 1 + oy:1 + oy + ny,
+            1 + oz:1 + oz + nz] += fe[a]
+    return out
+
+
+def _as(x, like):
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def stencil_matvec_ref(K, v):
+    """y = A v for the uniform (8, 3, 8, 3) node-block stencil K."""
+    ue = torch.stack(_corners(v))  # (8, 3, nx, ny, nz)
+    fe = torch.einsum("aibj,bj...->ai...", _as(K, v), ue)
+    return _assemble(fe, v)
+
+
+def _strain_A(H):
+    """A = 2E = H + H^T + H^T H."""
+    return H + H.transpose(0, 1) + torch.einsum("ki...,kj...->ij...", H, H)
+
+
+def _neo_stress(A, lam, mu):
+    """S = C^-1 (mu A + lam lnJ I), lnJ = log1p(det C - 1) / 2."""
+    eye = gm.eye3l(A)
+    trA = gm.tr3l(A)
+    trA2 = torch.einsum("ij...,ji...->...", A, A)
+    detC_m1 = trA + 0.5 * (trA * trA - trA2) + gm.det3l(A)
+    lnJ = 0.5 * torch.log1p(detC_m1)
+    Cinv = gm.inv3l(A + eye, 1.0 + detC_m1)
+    S = gm.matmul3l(Cinv, mu * A + lam * lnJ * eye)
+    return S, (Cinv, detC_m1, lnJ)
+
+
+def _neo_stress_dual(A, Ad, aux, lam, mu):
+    Cinv, detC_m1, lnJ = aux
+    eye = gm.eye3l(A)
+    trA, trAd = gm.tr3l(A), gm.tr3l(Ad)
+    trA2d = 2.0 * torch.einsum("ij...,ij...->...", A, Ad)
+    detAd = torch.einsum("ij...,ij...->...", gm.cof3l(A), Ad)
+    detC_m1_d = trAd + trA * trAd - 0.5 * trA2d + detAd
+    lnJd = 0.5 * detC_m1_d / (1.0 + detC_m1)
+    Cinvd = -gm.matmul3l(gm.matmul3l(Cinv, Ad), Cinv)
+    M = mu * A + lam * lnJ * eye
+    Md = mu * Ad + lam * lnJd * eye
+    return gm.matmul3l(Cinvd, M) + gm.matmul3l(Cinv, Md)
+
+
+def _svk_stress(A, lam, mu):
+    return lam * 0.5 * gm.tr3l(A) * gm.eye3l(A) + mu * A, None
+
+
+def _svk_stress_dual(A, Ad, aux, lam, mu):
+    return lam * 0.5 * gm.tr3l(Ad) * gm.eye3l(Ad) + mu * Ad
+
+
+STRESS = {"neohooke": (_neo_stress, _neo_stress_dual),
+          "svk": (_svk_stress, _svk_stress_dual)}
+
+
+def neo_force_ref(u, G, wdet, lam, mu, model="neohooke"):
+    """Total-Lagrangian internal force f = sum_g wdet_g P(F_g) G_g."""
+    stress = STRESS[model][0]
+    G, wdet = _as(G, u), _as(wdet, u)
+    ue = torch.stack(_corners(u))
+    fe = torch.zeros_like(ue)
+    for g in range(G.shape[0]):
+        H = torch.einsum("ai...,aj->ij...", ue, G[g])
+        S, _ = stress(_strain_A(H), lam, mu)
+        P = gm.matmul3l(H + gm.eye3l(H), S)
+        fe += wdet[g] * torch.einsum("ij...,aj->ai...", P, G[g])
+    return _assemble(fe, u)
+
+
+def neo_jvp_ref(u, v, G, wdet, lam, mu, model="neohooke", N=None, mcoef=0.0):
+    """Tangent apply K(u) v, the hand-propagated dual of neo_force_ref,
+    plus ``mcoef * sum_g wdet_g N N^T v`` (consistent mass) when mcoef != 0.
+    """
+    stress, dual = STRESS[model]
+    G, wdet = _as(G, u), _as(wdet, u)
+    ue, ve = torch.stack(_corners(u)), torch.stack(_corners(v))
+    fe = torch.zeros_like(ue)
+    for g in range(G.shape[0]):
+        H = torch.einsum("ai...,aj->ij...", ue, G[g])
+        Hd = torch.einsum("ai...,aj->ij...", ve, G[g])
+        A = _strain_A(H)
+        Ad = (Hd + Hd.transpose(0, 1)
+              + torch.einsum("ki...,kj...->ij...", Hd, H)
+              + torch.einsum("ki...,kj...->ij...", H, Hd))
+        S, aux = stress(A, lam, mu)
+        Sd = dual(A, Ad, aux, lam, mu)
+        Pd = gm.matmul3l(Hd, S) + gm.matmul3l(H + gm.eye3l(H), Sd)
+        fe += wdet[g] * torch.einsum("ij...,aj->ai...", Pd, G[g])
+        if mcoef:
+            Ng = _as(N, u)[g]
+            vbar = torch.einsum("b,bc...->c...", Ng, ve)
+            fe += (mcoef * wdet[g]) * Ng[:, None, None, None, None] * vbar
+    return _assemble(fe, u)
