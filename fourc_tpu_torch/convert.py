@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from fourc_tpu_torch.core.mesh import HEX8_OFFSETS
 from fourc_tpu_torch.physics.solid_lattice import STATE_FIELDS
 
 JAX_WIDE_GUARD = 8  # x guard band of the JAX wide layout (BX)
@@ -51,15 +52,32 @@ def free_from_jax(free_w, pshape):
     return lattice_from_jax(np.asarray(free_w, np.float64), pshape) > 0
 
 
+def lattice_coords_from_elements(Xe, shape):
+    """Element corner coordinates (E, 8, 3) of an nx*ny*nz lattice ->
+    node coordinates (px, py, pz, 3)."""
+    nx, ny, nz = shape
+    Xe = np.asarray(Xe, np.float64).reshape(nx, ny, nz, 8, 3)
+    out = np.empty((nx + 1, ny + 1, nz + 1, 3))
+    for a, (ox, oy, oz) in enumerate(HEX8_OFFSETS):
+        out[ox:ox + nx, oy:oy + ny, oz:oz + nz] = Xe[:, :, :, a]
+    return out
+
+
 def gmg_levels_from_jax(gmg):
-    """Per-level data of a JAX StructuredGMG: stencil K (8, 3, 8, 3), Jacobi
-    inverse diagonal and free mask as lattices, Chebyshev bounds."""
+    """Per-level data of a JAX StructuredGMG: Jacobi inverse diagonal and
+    free mask as lattices, Gershgorin bound, Chebyshev bounds and degree;
+    the stencil K (8, 3, 8, 3) of a uniform level, or the node coordinates
+    (px, py, pz, 3) of a general-geometry level (K None)."""
     levels = []
     for lv in gmg.levels:
         levels.append({
-            "K": np.asarray(lv._Kstencil, np.float64),
+            "K": (np.asarray(lv._Kstencil, np.float64) if lv.uniform
+                  else None),
+            "coords": (None if lv.uniform else
+                       lattice_coords_from_elements(lv.Xe, lv.shape)),
             "dinv": lattice_from_jax(lv.dinv, lv.pshape),
             "free": free_from_jax(lv.w, lv.pshape),
+            "gersh_lmax": float(lv.gersh_lmax),
             "lmax": float(lv.lmax),
             "lmin": float(lv.lmin),
             "degree": int(lv.degree),

@@ -1,9 +1,12 @@
 """Discretization: mesh arrays, node/face sets and the structured dof map.
 
-Counterpart of fourc_tpu/core/mesh.py for the lattice slice.  A mesh is a
+Counterpart of fourc_tpu/core/mesh.py for the lattice slices.  A mesh is a
 set of numpy arrays grouped by cell type.  Only structured blocks (the
 canonical lexicographic hex8 lattice that ``gridgen.box`` writes) get a dof
-map; general gather/scatter assembly belongs to a later slice.
+map.  A block is structured by provenance (``structured_shape``) or, without
+it, when its connectivity alone is the canonical lattice; node coordinates
+play no part, so a jittered box keeps its lattice.  General gather/scatter
+assembly belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -83,18 +86,54 @@ def lattice_conn(nx, ny, nz):
                     axis=-1).reshape(-1, 8).astype(np.int32)
 
 
+def _lattice_meta(nx, ny, nz):
+    return {"shape": (nx, ny, nz), "pshape": (nx + 1, ny + 1, nz + 1),
+            "offsets": HEX8_OFFSETS}
+
+
 def _detect_structured(disc: Discretization, blk: ElementBlock):
-    """Lattice metadata of a generator-made hex8 block, or None."""
+    """Lattice metadata of a structured hex8 block, or None."""
+    if blk.cell != "hex8":
+        return None
     ss = disc.structured_shape
-    if ss is None or len(ss) != 4 or ss[3] != 1 or blk.cell != "hex8":
+    if ss is None:
+        return _detect_conn_lattice(disc, blk)
+    if len(ss) != 4 or ss[3] != 1:
         return None
     nx, ny, nz, _ = ss
     if blk.conn.shape != (nx * ny * nz, 8):
         return None
     if not np.array_equal(blk.conn, lattice_conn(nx, ny, nz)):
         return None
-    return {"shape": (nx, ny, nz), "pshape": (nx + 1, ny + 1, nz + 1),
-            "offsets": HEX8_OFFSETS}
+    return _lattice_meta(nx, ny, nz)
+
+
+def _detect_conn_lattice(disc: Discretization, blk: ElementBlock):
+    """The canonical hex8 lattice recovered from connectivity alone, or None.
+
+    With node ids ``(i*py + j)*pz + k`` the local-node offsets are the same
+    in every element: pz = conn[:, 3] - conn[:, 0] and
+    py*pz = conn[:, 1] - conn[:, 0].  Solve for (px, py, pz), then require
+    conn to equal the canonical enumeration exactly.
+    """
+    conn = blk.conn
+    if conn.shape[0] < 2 or conn.shape[1] != 8:
+        return None
+    off = conn - conn[:, :1]
+    if not (off == off[0]).all():
+        return None
+    pz, pypz = int(off[0, 3]), int(off[0, 1])
+    if pz <= 1 or pypz <= pz or pypz % pz:
+        return None
+    py = pypz // pz
+    if disc.n_nodes % pypz or int(conn.max()) + 1 != disc.n_nodes:
+        return None
+    nx, ny, nz = disc.n_nodes // pypz - 1, py - 1, pz - 1
+    if nx < 1 or conn.shape[0] != nx * ny * nz:
+        return None
+    if not np.array_equal(conn, lattice_conn(nx, ny, nz)):
+        return None
+    return _lattice_meta(nx, ny, nz)
 
 
 @dataclass

@@ -2,8 +2,10 @@
 //
 // Port of the 3x3 helpers of fourc_tpu/ops/solid_pallas.py: _mm, _det,
 // _cof, _inv_from_cof, _strain_A, _stress_neohooke / _stress_neohooke_dual
-// and _stress_svk / _stress_svk_dual.  Everything lives in registers; the
-// index loops are fully unrolled so the 3x3 arrays never touch local memory.
+// and _stress_svk / _stress_svk_dual, plus the tangent stress Pd that the
+// uniform (B2) and general-geometry (B5) tangents share.  Everything lives
+// in registers; the index loops are fully unrolled so the 3x3 arrays never
+// touch local memory.
 //
 // Neo-Hooke uses the cancellation-free form of the reference:
 //   A = 2E = H + H^T + H^T H,  C = I + A,
@@ -175,6 +177,45 @@ __device__ __forceinline__ void stress_svk(const T A[3][3], T lam, T mu, T S[3][
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) S[i][j] = (i == j ? lam * trE : T(0)) + mu * A[i][j];
+}
+
+// Pd = d/dt P(H + t Hd) at t = 0 = Hd S + F Sd, F = I + H
+// (model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff)
+template <typename T>
+__device__ __forceinline__ void tangent_stress(const T H[3][3], const T Hd[3][3], T lam,
+                                               T mu, int model, T Pd[3][3]) {
+  T A[3][3], Ad[3][3], S[3][3], Sd[3][3];
+  strain_A(H, A);
+  strain_A_dual(H, Hd, Ad);
+  if (model == 0) {
+    NeoAux<T> aux;
+    stress_neohooke(A, lam, mu, S, aux);
+    stress_neohooke_dual(A, Ad, aux, lam, mu, Sd);
+  } else {
+    stress_svk(A, lam, mu, S);
+    stress_svk(Ad, lam, mu, Sd);  // linear law: the dual is S(Ad)
+  }
+  T F[3][3], P2[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
+  mm(Hd, S, Pd);
+  mm(F, Sd, P2);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Pd[i][j] += P2[i][j];
+}
+
+// c = a b^T
+template <typename T>
+__device__ __forceinline__ void mm_abt(const T a[3][3], const T b[3][3], T c[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      c[i][j] = a[i][0] * b[j][0] + a[i][1] * b[j][1] + a[i][2] * b[j][2];
 }
 
 }  // namespace fourc

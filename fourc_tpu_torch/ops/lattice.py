@@ -1,20 +1,25 @@
-"""Uniform hex8 lattice: layout, stencil collapse and the kernels' twins.
+"""Hex8 lattice: layout, stencil collapse and the kernels' twins.
 
-Counterpart of fourc_tpu/ops/lattice.py.  On a uniform hex8 lattice local
-node a of element (i, j, k) is lattice point (i, j, k) + offset_a, so the
+Counterpart of fourc_tpu/ops/lattice.py and of the general-geometry part of
+fourc_tpu/ops/lattice_pallas.py.  On a hex8 lattice local node a of element
+(i, j, k) is lattice point (i, j, k) + offset_a.  On a uniform lattice the
 internal force, the tangent apply, the consistent mass and every GMG level
-operator are 3D stencils over the node lattice.
+operator are 3D stencils over the node lattice.  On a general-geometry
+lattice (box topology, arbitrary node positions, e.g. a jittered box) the
+node coordinates ride along as a second lattice and every element's
+Jacobians are computed from its 8 corners at each Gauss point.
 
 Layout: one padded, component-first lattice ``(3, px+2, py+2, pz+2)`` with a
 zero ghost shell on every side.  Real node (i, j, k) lives at
 ``[:, 1+i, 1+j, 1+k]``.  Every operator here and in ops/lattice_kernels.py
 takes and returns this layout and leaves the ghost shell zero.
 
-The functions ``stencil_matvec_ref``, ``neo_force_ref`` and ``neo_jvp_ref``
-are the plain PyTorch twins of the three CUDA kernels: the same math, in
-shift form over the real element grid (no ghost-element masks needed).
-``neo_jvp_ref`` is the hand-propagated dual of the force, not autograd, so
-it checks the same algebra the tangent kernel runs.
+The functions ``stencil_matvec_ref``, ``neo_force_ref``, ``neo_jvp_ref``,
+``neo_force_gen_ref`` and ``neo_jvp_gen_ref`` are the plain PyTorch twins of
+the five CUDA kernels: the same math, in shift form over the real element
+grid (no ghost-element masks needed).  The tangents are the hand-propagated
+dual of the force, not autograd, so they check the same algebra the tangent
+kernels run.
 """
 
 from __future__ import annotations
@@ -31,10 +36,11 @@ from fourc_tpu_torch.ops import common as gm
 
 @dataclass(frozen=True)
 class LatticeSpec:
-    """One structured hex8 block: real node counts and element spacings."""
+    """One structured hex8 block: real node counts and element spacings
+    (``h`` is None on a general-geometry lattice)."""
 
     pshape: tuple  # (px, py, pz)
-    h: tuple  # (hx, hy, hz)
+    h: tuple | None  # (hx, hy, hz)
 
     @property
     def nshape(self):
@@ -79,6 +85,44 @@ def detect_lattice(disc) -> LatticeSpec | None:
     if not np.allclose(lat, want, rtol=0.0, atol=eps):
         return None
     return LatticeSpec(pshape=(px, py, pz), h=h)
+
+
+def general_lattice(dofmap) -> LatticeSpec | None:
+    """LatticeSpec (h None) of a one-block hex8 lattice dof map, whatever
+    the node positions; None for anything else."""
+    if len(dofmap.blocks) != 1:
+        return None
+    blk = next(iter(dofmap.blocks.values()))
+    if blk.cell != "hex8" or blk.structured is None:
+        return None
+    return LatticeSpec(pshape=tuple(blk.structured["pshape"]), h=None)
+
+
+def coord_lattice(coords, spec: LatticeSpec, dtype, device) -> torch.Tensor:
+    """Node coordinates (n_nodes, 3) -> padded lattice in the layout of a dof
+    vector (the kernels read only the corners of real elements)."""
+    x = torch.as_tensor(np.asarray(coords, np.float64).reshape(-1))
+    return to_lattice(x, spec).to(device=device, dtype=dtype).contiguous()
+
+
+def element_corners(lat_coords: torch.Tensor, nshape) -> torch.Tensor:
+    """Lattice coordinates (px, py, pz, 3) -> element corners (E, 8, 3),
+    elements in lattice order, corners in hex8 node order."""
+    nx, ny, nz = nshape
+    return torch.stack([lat_coords[ox:ox + nx, oy:oy + ny, oz:oz + nz]
+                        for ox, oy, oz in HEX8_OFFSETS],
+                       dim=3).reshape(nx * ny * nz, 8, 3)
+
+
+def assemble_elements(vals: torch.Tensor, nshape) -> torch.Tensor:
+    """Per-element node values (E, 8, c) summed into the node lattice
+    (px, py, pz, c); elements in lattice order."""
+    nx, ny, nz = nshape
+    v = vals.reshape(nx, ny, nz, 8, -1)
+    out = vals.new_zeros((nx + 1, ny + 1, nz + 1, v.shape[-1]))
+    for a, (ox, oy, oz) in enumerate(HEX8_OFFSETS):
+        out[ox:ox + nx, oy:oy + ny, oz:oz + nz] += v[:, :, :, a]
+    return out
 
 
 def to_lattice(v: torch.Tensor, spec: LatticeSpec) -> torch.Tensor:
@@ -223,27 +267,93 @@ def neo_force_ref(u, G, wdet, lam, mu, model="neohooke"):
     return _assemble(fe, u)
 
 
+def _tangent_stress(H, Hd, lam, mu, model):
+    """Pd = d/dt P(H + t Hd) at t = 0; H None means u = 0, where every law
+    is linear elasticity: Pd = lam tr(Hd) I + mu (Hd + Hd^T)."""
+    if H is None:
+        return _svk_stress_dual(None, Hd + Hd.transpose(0, 1), None, lam, mu)
+    stress, dual = STRESS[model]
+    A = _strain_A(H)
+    Ad = (Hd + Hd.transpose(0, 1)
+          + torch.einsum("ki...,kj...->ij...", Hd, H)
+          + torch.einsum("ki...,kj...->ij...", H, Hd))
+    S, aux = stress(A, lam, mu)
+    Sd = dual(A, Ad, aux, lam, mu)
+    return gm.matmul3l(Hd, S) + gm.matmul3l(H + gm.eye3l(H), Sd)
+
+
+def _mass_gp(ve, Ng, c):
+    """One Gauss point of the consistent mass: c N (N^T v), per element."""
+    vbar = torch.einsum("b,bc...->c...", Ng, ve)
+    return c * Ng[:, None, None, None, None] * vbar
+
+
 def neo_jvp_ref(u, v, G, wdet, lam, mu, model="neohooke", N=None, mcoef=0.0):
     """Tangent apply K(u) v, the hand-propagated dual of neo_force_ref,
     plus ``mcoef * sum_g wdet_g N N^T v`` (consistent mass) when mcoef != 0.
     """
-    stress, dual = STRESS[model]
     G, wdet = _as(G, u), _as(wdet, u)
     ue, ve = torch.stack(_corners(u)), torch.stack(_corners(v))
     fe = torch.zeros_like(ue)
     for g in range(G.shape[0]):
         H = torch.einsum("ai...,aj->ij...", ue, G[g])
         Hd = torch.einsum("ai...,aj->ij...", ve, G[g])
-        A = _strain_A(H)
-        Ad = (Hd + Hd.transpose(0, 1)
-              + torch.einsum("ki...,kj...->ij...", Hd, H)
-              + torch.einsum("ki...,kj...->ij...", H, Hd))
-        S, aux = stress(A, lam, mu)
-        Sd = dual(A, Ad, aux, lam, mu)
-        Pd = gm.matmul3l(Hd, S) + gm.matmul3l(H + gm.eye3l(H), Sd)
+        Pd = _tangent_stress(H, Hd, lam, mu, model)
         fe += wdet[g] * torch.einsum("ij...,aj->ai...", Pd, G[g])
         if mcoef:
-            Ng = _as(N, u)[g]
-            vbar = torch.einsum("b,bc...->c...", Ng, ve)
-            fe += (mcoef * wdet[g]) * Ng[:, None, None, None, None] * vbar
+            fe += _mass_gp(ve, _as(N, u)[g], mcoef * wdet[g])
     return _assemble(fe, u)
+
+
+def _geom_gp(xe, dN_g, w_g):
+    """Geometry of one Gauss point of every real element from its corner
+    coordinates xe (8, 3, nx, ny, nz): cartesian shape gradients
+    G (8, 3, nx, ny, nz) and the weighted Jacobian determinant wdet."""
+    J = torch.einsum("ai...,aj->ij...", xe, dN_g)  # J_ij = dx_i / dxi_j
+    det = gm.det3l(J)
+    Jinv = gm.inv3l(J, det)
+    return torch.einsum("aj,ji...->ai...", dN_g, Jinv), det * w_g
+
+
+def neo_force_gen_ref(x, u, dN, w, N, lam, mu, model="neohooke", mcoef=0.0,
+                      stiff=True):
+    """General-geometry internal force sum_g wdet_g P(F_g) G_g (when
+    ``stiff``) plus the consistent mass applied to u,
+    ``mcoef * sum_g wdet_g N N^T u`` (when mcoef != 0).  x is the coordinate
+    lattice; dN (8, 8, 3), w (8,) and N (8, 8) are the hex8 reference
+    gradients, Gauss weights and shape functions at the Gauss points."""
+    stress = STRESS[model][0]
+    dN, w, N = _as(dN, u), _as(w, u), _as(N, u)
+    xe, ue = torch.stack(_corners(x)), torch.stack(_corners(u))
+    fe = torch.zeros_like(ue)
+    for g in range(dN.shape[0]):
+        G, wdet = _geom_gp(xe, dN[g], w[g])
+        if stiff:
+            H = torch.einsum("ai...,aj...->ij...", ue, G)
+            S, _ = stress(_strain_A(H), lam, mu)
+            P = gm.matmul3l(H + gm.eye3l(H), S)
+            fe += wdet * torch.einsum("ij...,aj...->ai...", P, G)
+        if mcoef:
+            fe += _mass_gp(ue, N[g], mcoef * wdet)
+    return _assemble(fe, u)
+
+
+def neo_jvp_gen_ref(x, u, v, dN, w, N, lam, mu, model="neohooke",
+                    mcoef=0.0):
+    """General-geometry tangent apply K(u) v, the hand-propagated dual of
+    neo_force_gen_ref, plus ``mcoef * sum_g wdet_g N N^T v`` when
+    mcoef != 0.  ``u=None`` means u = 0: the linear-elastic operator (the
+    exact-geometry GMG level operator), which reads no u."""
+    dN, w, N = _as(dN, v), _as(w, v), _as(N, v)
+    xe, ve = torch.stack(_corners(x)), torch.stack(_corners(v))
+    ue = None if u is None else torch.stack(_corners(u))
+    fe = torch.zeros_like(ve)
+    for g in range(dN.shape[0]):
+        G, wdet = _geom_gp(xe, dN[g], w[g])
+        H = None if ue is None else torch.einsum("ai...,aj...->ij...", ue, G)
+        Hd = torch.einsum("ai...,aj...->ij...", ve, G)
+        Pd = _tangent_stress(H, Hd, lam, mu, model)
+        fe += wdet * torch.einsum("ij...,aj...->ai...", Pd, G)
+        if mcoef:
+            fe += _mass_gp(ve, N[g], mcoef * wdet)
+    return _assemble(fe, v)

@@ -1,6 +1,6 @@
-"""CUDA kernels for the uniform hex8 lattice and their ctypes binding.
+"""CUDA kernels for the hex8 lattice and their ctypes binding.
 
-Counterpart of fourc_tpu/ops/lattice_pallas.py.  Three kernels, written by
+Counterpart of fourc_tpu/ops/lattice_pallas.py.  Five kernels, written by
 hand in CUDA C++ for Hopper (``fourc_tpu_torch/csrc/lattice_kernels.cu``):
 
 - ``stencil_matvec``: y = A v for one uniform (8, 3, 8, 3) node-block stencil
@@ -9,6 +9,12 @@ hand in CUDA C++ for Hopper (``fourc_tpu_torch/csrc/lattice_kernels.cu``):
   replaces ``_force_kernel``.
 - ``neo_tangent``: the tangent apply K(u) v, optionally plus the consistent
   mass ``mcoef * M v`` in the same pass; replaces ``_jvp_kernel``.
+- ``neo_force_gen``: ``neo_force`` on general geometry (Jacobians from a
+  coordinate lattice), optionally plus or (``stiff=False``) only the
+  consistent mass; replaces ``_force_kernel_gen``.
+- ``neo_tangent_gen``: ``neo_tangent`` on general geometry; ``u=None`` is
+  the linear operator at u = 0 (exact-geometry GMG levels); replaces
+  ``_jvp_kernel_gen``.
 
 Each wrapper takes and returns the padded lattice layout of ops/lattice.py.
 A tensor on the CPU goes to the kernel's plain PyTorch twin in
@@ -44,7 +50,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _MODELS = {"neohooke": 0, "svk": 1}
 
-launches = {"stencil": 0, "force": 0, "tangent": 0}
+launches = {"stencil": 0, "force": 0, "tangent": 0, "force_gen": 0,
+            "tangent_gen": 0}
 
 
 def reset_launches():
@@ -107,6 +114,12 @@ def _lib():
         f.restype = I
         f = getattr(lib, f"fourc_tangent_{t}")
         f.argtypes = [P, P, P, P, P, D, D, I, D, P, P, I, I, I, P]
+        f.restype = I
+        f = getattr(lib, f"fourc_force_gen_{t}")
+        f.argtypes = [P, P, P, P, P, D, D, I, D, I, P, P, I, I, I, P]
+        f.restype = I
+        f = getattr(lib, f"fourc_tangent_gen_{t}")
+        f.argtypes = [P, P, P, P, P, P, D, D, I, D, P, P, I, I, I, P]
         f.restype = I
     return lib
 
@@ -196,4 +209,55 @@ def neo_tangent(u, v, G, wdet, N, lam, mu, model="neohooke", mcoef=0.0):
          float(mu), _MODELS[model], float(mcoef), _ptr(scratch), _ptr(out),
          nx, ny, nz)
     launches["tangent"] += 1
+    return out
+
+
+def _check_tables(like, dN, w, N):
+    _check(dN, like, (8, 8, 3), "dN")
+    _check(w, like, (8,), "w")
+    _check(N, like, (8, 8), "N")
+
+
+def neo_force_gen(x, u, dN, w, N, lam, mu, model="neohooke", mcoef=0.0,
+                  stiff=True):
+    """General-geometry internal force (``stiff``) plus
+    ``mcoef * sum_g wdet_g N N^T u`` (consistent mass, when mcoef != 0).
+    x is the coordinate lattice; dN (8, 8, 3), w (8,) and N (8, 8) the hex8
+    reference gradients, Gauss weights and shape functions, on u's device
+    in u's dtype."""
+    if not u.is_cuda:
+        return _lat.neo_force_gen_ref(x, u, dN, w, N, lam, mu, model, mcoef,
+                                      stiff)
+    nx, ny, nz = _dims(u)
+    _check(u, u, u.shape, "u")
+    _check(x, u, u.shape, "x")
+    _check_tables(u, dN, w, N)
+    scratch = torch.empty((24, nx * ny * nz), dtype=u.dtype, device=u.device)
+    out = torch.empty_like(u)
+    _run(getattr(_lib(), f"fourc_force_gen_{_SUFFIX[u.dtype]}"),
+         _ptr(x), _ptr(u), _ptr(dN), _ptr(w), _ptr(N), float(lam), float(mu),
+         _MODELS[model], float(mcoef), int(bool(stiff)), _ptr(scratch),
+         _ptr(out), nx, ny, nz)
+    launches["force_gen"] += 1
+    return out
+
+
+def neo_tangent_gen(x, u, v, dN, w, N, lam, mu, model="neohooke", mcoef=0.0):
+    """General-geometry K(u) v + mcoef * sum_g wdet_g N N^T v; ``u=None``
+    means u = 0 (linear elasticity, u is not read)."""
+    if not v.is_cuda:
+        return _lat.neo_jvp_gen_ref(x, u, v, dN, w, N, lam, mu, model, mcoef)
+    nx, ny, nz = _dims(v)
+    _check(v, v, v.shape, "v")
+    _check(x, v, v.shape, "x")
+    if u is not None:
+        _check(u, v, v.shape, "u")
+    _check_tables(v, dN, w, N)
+    scratch = torch.empty((24, nx * ny * nz), dtype=v.dtype, device=v.device)
+    out = torch.empty_like(v)
+    _run(getattr(_lib(), f"fourc_tangent_gen_{_SUFFIX[v.dtype]}"),
+         _ptr(x), None if u is None else _ptr(u), _ptr(v), _ptr(dN), _ptr(w),
+         _ptr(N), float(lam), float(mu), _MODELS[model], float(mcoef),
+         _ptr(scratch), _ptr(out), nx, ny, nz)
+    launches["tangent_gen"] += 1
     return out

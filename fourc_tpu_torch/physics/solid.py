@@ -1,9 +1,13 @@
-"""Structural field on a uniform hex8 lattice: forces, mass, gen-alpha step.
+"""Structural field on a hex8 lattice: forces, mass, gen-alpha step.
 
-Counterpart of the subset of fourc_tpu/physics/solid.py that the flagship
-problem runs: one hex8 block on a uniform lattice, a Neo-Hooke or SVK law,
+Counterpart of the subset of fourc_tpu/physics/solid.py that the lattice
+problems run: one hex8 block with lattice topology, a Neo-Hooke or SVK law,
 consistent mass, Dirichlet and surface-traction conditions, gen-alpha in
-time with Newton-Krylov (CG + geometric multigrid).  The field's operators
+time with Newton-Krylov (CG + geometric multigrid).  On a uniform lattice
+the operators are collapsed stencils (kernels B1-B3); on general geometry
+(lattice topology, arbitrary node positions, e.g. a jittered box) the field
+keeps its node coordinates as a lattice and the general-geometry kernels
+(B4, B5) compute every element's Jacobians.  The field's operators
 work on the padded lattice layout of ops/lattice.py and run the CUDA
 kernels of ops/lattice_kernels.py on a CUDA device (their twins on the CPU).
 State dicts from ``init_state``/``compute_initial_state`` hold flat dof
@@ -20,6 +24,7 @@ import torch
 
 from fourc_tpu_torch.core.cells import get_cell
 from fourc_tpu_torch.core.conditions import DirichletHandler
+from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.functions import FunctionManager
 from fourc_tpu_torch.core.mesh import Discretization
 from fourc_tpu_torch.linalg import solvers
@@ -75,15 +80,16 @@ class SolidParams:
 
 
 class SolidField:
-    """Discretization + material + conditions -> lattice operators."""
+    """Discretization + material + conditions -> lattice operators, on the
+    CUDA card unless ``device="cpu"`` is asked for."""
 
     def __init__(self, disc: Discretization, materials: dict,
                  params: SolidParams, dirichlet=(), neumann=(),
                  functions: FunctionManager | None = None,
-                 device="cpu", dtype=torch.float64):
+                 device="cuda", dtype=torch.float64):
         self.disc = disc
         self.params = params
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.functions = functions or FunctionManager()
         self.ndpn = disc.dim
@@ -99,10 +105,6 @@ class SolidField:
                 raise ValueError(f"block {key} mixes materials")
             self.block_mat[key] = materials[mid]
         self._check_supported()
-        self.lattice = _lat.detect_lattice(disc)
-        if self.lattice is None:
-            raise NotImplementedError(
-                "only a single-block uniform hex8 lattice is ported")
         key = next(iter(self.block_mat))
         mat = self.block_mat[key]
         self.cell = get_cell("hex8")
@@ -111,11 +113,25 @@ class SolidField:
             raise NotImplementedError(f"no lattice kernel for {mat!r}")
         self.lam, self.mu = (float(x) for x in lame(mat.youngs, mat.nue))
         self.density = float(mat.density or 0.0)
-        G, wdet = _lat.uniform_geometry(self.cell, self.lattice)
-        self.G, self.wdet, self.N = (self._t(x) for x in (G, wdet,
-                                                          self.cell.N))
-        self.Xe1 = disc.coords[disc.blocks[key].conn[:1]]  # (1, 8, 3)
-        self.mass_stencil = self._t(self._mass_stencil())
+        self.N = self._t(self.cell.N)
+        # uniform lattice: collapsed stencils; else general geometry on the
+        # lattice topology of the dof map: the coordinate lattice x
+        self.lattice = _lat.detect_lattice(disc)
+        self.x = None
+        if self.lattice is not None:
+            G, wdet = _lat.uniform_geometry(self.cell, self.lattice)
+            self.G, self.wdet = self._t(G), self._t(wdet)
+            self.Xe1 = disc.coords[disc.blocks[key].conn[:1]]  # (1, 8, 3)
+            self.mass_stencil = self._t(self._mass_stencil())
+        else:
+            self.lattice = _lat.general_lattice(self.dofmap)
+            if self.lattice is None:
+                raise NotImplementedError(
+                    "only a single-block hex8 lattice is ported")
+            self.x = _lat.coord_lattice(disc.coords, self.lattice, dtype,
+                                        self.device)
+            self.dN = self._t(self.cell.dN)
+            self.w = self._t(self.cell.gauss_weights)
         free = torch.as_tensor(self.dbc.free_mask, dtype=torch.float64)
         self.free = self.to_lattice(free.to(self.device)) > 0
         self._neumann_data = []
@@ -153,15 +169,25 @@ class SolidField:
     # -- operators (padded lattice layout) --------------------------------
 
     def internal_force(self, u):
+        if self.x is not None:
+            return lk.neo_force_gen(self.x, u, self.dN, self.w, self.N,
+                                    self.lam, self.mu, self.model)
         return lk.neo_force(u, self.G, self.wdet, self.lam, self.mu,
                             self.model)
 
     def tangent(self, u, v, mcoef=0.0):
         """K(u) v + mcoef * sum_g wdet N N^T v (mcoef includes rho)."""
+        if self.x is not None:
+            return lk.neo_tangent_gen(self.x, u, v, self.dN, self.w, self.N,
+                                      self.lam, self.mu, self.model, mcoef)
         return lk.neo_tangent(u, v, self.G, self.wdet, self.N, self.lam,
                               self.mu, self.model, mcoef)
 
     def mass_matvec(self, v):
+        if self.x is not None:  # B4 in its mass-only mode
+            return lk.neo_force_gen(self.x, v, self.dN, self.w, self.N, 0.0,
+                                    0.0, "svk", mcoef=self.density,
+                                    stiff=False)
         return lk.stencil_matvec(self.mass_stencil, v)
 
     def external_force(self, t):
@@ -183,9 +209,16 @@ class SolidField:
         return self.to_lattice(self._t(f))
 
     def lumped_mass(self):
+        nshape = self.lattice.nshape
+        if self.x is not None:  # every element's own geometry
+            X = torch.as_tensor(self.disc.coords, device=self.device)
+            nodal = ops.lattice_lumped_mass(
+                X.reshape(self.lattice.pshape + (3,)), nshape, self.cell,
+                self.density)
+            return self.to_lattice(nodal.reshape(-1).to(self.dtype))
         ml = ops.lumped_mass(self.Xe1, self.cell, self.density)[0]  # (8,)
         nodal = _lat.assemble_uniform(np.repeat(ml[:, None], 3, axis=1),
-                                      self.lattice.nshape)
+                                      nshape)
         return self.to_lattice(self._t(nodal.reshape(-1)))
 
     def _mass_stencil(self):
@@ -263,5 +296,6 @@ def _make_genalpha_step(f: SolidField, dt: float):
 
     ga = f.params.genalpha
     M_gmg = gmg.build_for_solid(
-        f, mass_shift=(1 - ga.alpha_m) / (ga.beta * dt * dt))
+        f, mass_shift=(1 - ga.alpha_m) / (ga.beta * dt * dt),
+        device=f.device)
     return solid_lattice.make_lattice_genalpha_step(f, dt, M_gmg)

@@ -1,6 +1,8 @@
 """Gen-alpha step with the whole Newton-Krylov loop in the lattice layout.
 
-Counterpart of fourc_tpu/physics/solid_lattice.py (uniform geometry).  State
+Counterpart of fourc_tpu/physics/solid_lattice.py, for both kinds of field
+spec: a uniform lattice (kernels B1-B3) and general geometry on lattice
+topology (B4, B5); the step only calls the field's operators.  State
 vectors, residuals, Krylov vectors and the GMG hierarchy all stay in the
 padded lattice layout (ops/lattice.py); the flat dof state is converted once,
 on the first step.
@@ -8,7 +10,9 @@ on the first step.
 The Newton operator is the fused tangent of the residual,
 ``(1 - af) * (K(u) v + mcoef * M v)`` with
 ``mcoef = rho (1 - am) / ((1 - af) beta dt^2)``: one tangent-kernel pass
-per Krylov iteration.
+per Krylov iteration (the reference takes ``jax.jvp`` of the residual,
+which on general geometry runs the tangent and the mass kernels; the sum
+is the same).
 """
 
 from __future__ import annotations

@@ -94,6 +94,58 @@ def test_tangent_kernel_matches_twin(cuda, dtype, shape, mcoef):
     assert _rel(got, want) <= TOL[dtype]
 
 
+def _coords(spec, t, seed):
+    """Coordinate lattice of the spec's box with every node jittered by up
+    to +-0.15 h per axis (general geometry, positive Jacobians)."""
+    idx = np.stack(np.meshgrid(*[np.arange(p) for p in spec.pshape],
+                               indexing="ij"), axis=-1)
+    h = np.asarray(spec.h)
+    X = idx * h + (np.random.default_rng(seed).random(idx.shape) - 0.5) \
+        * 0.3 * h
+    return lat.to_lattice(t(X.reshape(-1)), spec)
+
+
+GEN_FORCE = {"neohooke": ("neohooke", 0.0, True), "svk": ("svk", 0.0, True),
+             "mass": ("svk", 2.5, False), "fused": ("neohooke", 137.5, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", list(GEN_FORCE))
+def test_force_gen_kernel_matches_twin(cuda, dtype, shape, mode):
+    spec, t, field, *_, N = _inputs(shape, dtype, cuda, 6)
+    x = _coords(spec, t, 7)
+    tab = (t(cells.get_cell("hex8").dN),
+           t(cells.get_cell("hex8").gauss_weights), N)
+    model, mcoef, stiff = GEN_FORCE[mode]
+    lam, mu = lame(500.0, 0.3)
+    u = field(1e-2)
+    lk.reset_launches()
+    got = lk.neo_force_gen(x, u, *tab, lam, mu, model, mcoef, stiff)
+    assert lk.launches["force_gen"] == 1
+    want = lat.neo_force_gen_ref(x, u, *tab, lam, mu, model, mcoef, stiff)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", ["neohooke", "fused", "linear"])
+def test_tangent_gen_kernel_matches_twin(cuda, dtype, shape, mode):
+    spec, t, field, *_, N = _inputs(shape, dtype, cuda, 8)
+    x = _coords(spec, t, 9)
+    tab = (t(cells.get_cell("hex8").dN),
+           t(cells.get_cell("hex8").gauss_weights), N)
+    lam, mu = lame(500.0, 0.3)
+    u = None if mode == "linear" else field(1e-2)
+    mcoef = 137.5 if mode == "fused" else 0.0
+    v = field(1.0)
+    lk.reset_launches()
+    got = lk.neo_tangent_gen(x, u, v, *tab, lam, mu, "neohooke", mcoef)
+    assert lk.launches["tangent_gen"] == 1
+    want = lat.neo_jvp_gen_ref(x, u, v, *tab, lam, mu, "neohooke", mcoef)
+    assert _rel(got, want) <= TOL[dtype]
+
+
 def test_kernel_rejects_mixed_devices(cuda):
     _, _, field, G, wdet, _ = _inputs(SHAPES[0], torch.float64, cuda, 5)
     with pytest.raises(ValueError):

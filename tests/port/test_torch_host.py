@@ -66,9 +66,22 @@ def test_box_matches_reference(n, hi):
                                       want.face_sets[nm][0].conn)
 
 
-def test_dofmap_rejects_unstructured():
-    disc = gridgen.box(2, 2, 2)
+@pytest.mark.parametrize("ids", ["canonical", "permuted"])
+def test_dofmap_rejects_unstructured(ids):
+    """Without generator provenance the canonical connectivity is still a
+    lattice (detected from conn alone); permuted node ids are not."""
+    disc = gridgen.box(2, 3, 2)
     disc.structured_shape = None
+    if ids == "canonical":
+        blk = disc.dofmap(3).blocks["hex8"]
+        assert blk.structured["shape"] == (2, 3, 2)
+        assert blk.structured["pshape"] == (3, 4, 3)
+        return
+    perm = np.random.default_rng(0).permutation(disc.n_nodes)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(disc.n_nodes)
+    disc.coords = disc.coords[perm]
+    disc.blocks["hex8"].conn = inv[disc.blocks["hex8"].conn].astype(np.int32)
     with pytest.raises(NotImplementedError):
         disc.dofmap(3)
 

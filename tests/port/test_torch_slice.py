@@ -46,8 +46,9 @@ N, DT = 4, 0.05
 MAT = {"type": "neohooke", "youngs": 1.0e4, "nue": 0.3, "density": 1.0}
 
 
-def _field(pkg, **kw):
-    """The flagship problem at n=4 in either package (same settings)."""
+def _field(pkg, field_kw=(), **kw):
+    """The flagship problem at n=4 in either package (same settings); kw go
+    to SolidParams, field_kw to SolidField."""
     disc = pkg.gridgen.box(N, N, N)
     params = pkg.ps.SolidParams(
         kinem="nonlinear", dyntype="genalpha",
@@ -61,7 +62,8 @@ def _field(pkg, **kw):
     neu = [pkg.NeumannBC(disc.face_sets["zmax"], [1, 0, 0], [80.0, 0, 0],
                          funct=[1, 0, 0])]
     return pkg.ps.SolidField(disc, {1: pkg.make_material(dict(MAT))}, params,
-                             dirichlet=dbc, neumann=neu, functions=fm)
+                             dirichlet=dbc, neumann=neu, functions=fm,
+                             **dict(field_kw))
 
 
 JAX = types.SimpleNamespace(
@@ -77,13 +79,13 @@ def flagship():
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("FOURC_LATTICE", "1")
         fj = _field(JAX, wide=True)
-        fp = _field(PORT)
+        fp = _field(PORT, field_kw={"device": "cpu"})
         ga = fj.params.genalpha
         shift = (1 - ga.alpha_m) / (ga.beta * DT * DT)
         yield types.SimpleNamespace(
             fj=fj, fp=fp, shift=shift, pshape=(N + 1,) * 3,
             Mj=jgmg.build_for_solid(fj, mass_shift=shift),
-            Mp=gmg.build_for_solid(fp, mass_shift=shift),
+            Mp=gmg.build_for_solid(fp, mass_shift=shift, device="cpu"),
             sj=jps.compute_initial_state(fj, jps.init_state(fj)),
             sp=ps.compute_initial_state(fp, ps.init_state(fp)))
 
@@ -203,5 +205,6 @@ def test_unported_configurations_refuse(change):
     else:
         params.precond = "block_jacobi"
     with pytest.raises(NotImplementedError):
-        f = ps.SolidField(disc, {1: make_material(dict(MAT))}, params)
+        f = ps.SolidField(disc, {1: make_material(dict(MAT))}, params,
+                          device="cpu")
         ps.make_step(f, dt=DT)

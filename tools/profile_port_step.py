@@ -1,11 +1,11 @@
-"""Profile the port's flagship gen-alpha step on one CUDA GPU.
+"""Profile the port's gen-alpha step on one CUDA GPU.
 
 Usage, from the repository root on a machine with a CUDA device:
 
-    python tools/profile_port_step.py [n] [steps]
+    python tools/profile_port_step.py [n] [steps] [flagship|jittered]
 
-Builds the flagship problem of chip_smoke.py (default n=72, float32), runs
-two warm-up steps, then traces ``steps`` steps (default 2) with
+Builds the flagship problem of chip_smoke.py, or its jittered-box variant
+(default n=72, float32, flagship), runs two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
 the host time per CG iteration.
@@ -32,7 +32,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 72
     n_steps = int(sys.argv[2]) if len(sys.argv) > 2 else 2
-    f = cs.build_flagship(n, "cuda", torch.float32)
+    mesh = sys.argv[3] if len(sys.argv) > 3 else "flagship"
+    if mesh not in ("flagship", "jittered"):
+        raise ValueError(f"mesh must be flagship or jittered, not {mesh!r}")
+    f = cs.build_problem(n, "cuda", torch.float32,
+                         jittered=mesh == "jittered")
     state = ps.compute_initial_state(f, ps.init_state(f))
     step = ps.make_step(f, dt=0.02)
     for _ in range(2):
@@ -56,7 +60,7 @@ def main():
                                     row_limit=25))
     launches = sum(e.count for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"n={n}: {n_steps} steps, {newton} Newton, {cg} CG iterations, "
+    print(f"{mesh} n={n}: {n_steps} steps, {newton} Newton, {cg} CG iterations, "
           f"wall {1e3 * wall:.1f} ms (profiler on), device kernel time "
           f"{device_us / 1e3:.1f} ms, busy share "
           f"{device_us / 1e6 / wall:.3f}, {launches} device kernels, "
