@@ -8,21 +8,28 @@ Usage, from the repository root on a machine with a CUDA device and nvcc:
 Phases (each prints its lines; any failure raises and the exit code is 1):
 
 1. environment: GPU name and power limit, torch/CUDA versions, nvcc, triton;
-2. build: compiles fourc_tpu_torch/csrc with nvcc for sm_90a;
+2. build: compiles both sources of fourc_tpu_torch/csrc with nvcc for
+   sm_90a, one nvcc process each, started together;
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card, at
-   n=16 and n=72, in float64 (max relative error <= 1e-10) and float32
-   (<= 1e-4), plus kernel and twin times at n=72 in float32.  B1-B3 run on
-   the uniform box, B4-B5 on the jittered box;
+   n=16 and at its path's full size, in float64 (max relative error
+   <= 1e-10) and float32 (<= 1e-4), plus kernel and twin times at full size
+   in float32.  B1-B3 run on the uniform box and B4-B5 on the jittered box
+   (n=72), B6-B7 on element batches of the permuted box (n=56);
 4. correctness: two gen-alpha steps at n=6 in float64 on the GPU (kernels)
    against the same steps on the CPU (twins, which tests/port holds to the
-   JAX package), max relative error <= 1e-9, for the flagship and for the
-   jittered box;
+   JAX package), max relative error <= 1e-9, for the flagship, the jittered
+   box and the permuted box;
 5. flagship path: the flagship problem of bench.py at n=72 (1,167,051
    dofs) in float32 through SolidField / make_step: 1 warm-up and 5 timed
    steps, every step converged, B1-B3 launched;
 6. jittered path: bench.py's ``unstructured_1M`` problem (the same box,
    interior nodes jittered by up to +-0.175 h, no generator provenance) the
-   same way, B4-B5 launched.
+   same way, B4-B5 launched;
+7. permuted path: bench.py's ``permuted_500k`` problem (the jittered box at
+   n=56, 555,579 dofs, with its nodes renumbered at random: general
+   topology, flat dof vectors, gather and incidence assembly, SA-AMG with
+   its setup timed stage by stage) the same way, B6-B7 launched and none of
+   B1-B5.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last three lines are a JSON object with per-kernel results (launches on
@@ -36,6 +43,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -43,19 +51,32 @@ import torch
 from fourc_tpu_torch import materials
 from fourc_tpu_torch.core import cells, conditions, functions, gridgen
 from fourc_tpu_torch.materials.elastic import lame
+from fourc_tpu_torch.ops import cuda_build
 from fourc_tpu_torch.ops import lattice as lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
+from fourc_tpu_torch.ops import solid as sops
+from fourc_tpu_torch.ops import solid_kernels as sk
 from fourc_tpu_torch.physics import solid as ps
 
 F64_TOL, F32_TOL, STEP_TOL = 1e-10, 1e-4, 1e-9
-SOURCE = "fourc_tpu_torch/csrc/lattice_kernels.cu"
-REPLACES = {"stencil": "fourc_tpu/ops/lattice_pallas.py:90",
-            "force": "fourc_tpu/ops/lattice_pallas.py:164",
-            "tangent": "fourc_tpu/ops/lattice_pallas.py:189",
-            "force_gen": "fourc_tpu/ops/lattice_pallas.py:285",
-            "tangent_gen": "fourc_tpu/ops/lattice_pallas.py:331"}
-PATH_OF = {"stencil": "flagship", "force": "flagship", "tangent": "flagship",
-           "force_gen": "jittered", "tangent_gen": "jittered"}
+# kernel -> (number, JSON name, source, TPU kernel it replaces, its path)
+KERNELS = {
+    "stencil": ("B3", "lattice_stencil", lk.SOURCE,
+                "fourc_tpu/ops/lattice_pallas.py:90", "flagship"),
+    "force": ("B1", "lattice_force", lk.SOURCE,
+              "fourc_tpu/ops/lattice_pallas.py:164", "flagship"),
+    "tangent": ("B2", "lattice_tangent", lk.SOURCE,
+                "fourc_tpu/ops/lattice_pallas.py:189", "flagship"),
+    "force_gen": ("B4", "lattice_force_gen", lk.SOURCE,
+                  "fourc_tpu/ops/lattice_pallas.py:285", "jittered"),
+    "tangent_gen": ("B5", "lattice_tangent_gen", lk.SOURCE,
+                    "fourc_tpu/ops/lattice_pallas.py:331", "jittered"),
+    "solid_force": ("B6", "solid_force", sk.SOURCE,
+                    "fourc_tpu/ops/solid_pallas.py:173", "permuted"),
+    "solid_tangent": ("B7", "solid_tangent", sk.SOURCE,
+                      "fourc_tpu/ops/solid_pallas.py:184", "permuted"),
+}
+FULL_N = {"flagship": 72, "jittered": 72, "permuted": 56}  # elements per axis
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W): float32 outside
 # the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -66,7 +87,8 @@ PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # 16, the Pd sum 9, consistent mass 106; general geometry adds the Jacobian
 # (grad 144, cof3 27, det3 14, inverse 10, wdet 1: 196), H = Hhat Jinv (mm
 # 45 per gradient) and P Jinv^T (mm 45); the mass-only mode needs only
-# grad, det3 and wdet.  The gather pass adds 24 adds per element.
+# grad, det3 and wdet.  The lattice kernels' gather pass adds 24 adds per
+# element; the element-batch kernels B6/B7 have no such pass.
 _GP = {"force neohooke": 144 + 63 + 139 + 3 + 45 + 168,
        "force svk": 144 + 63 + 16 + 3 + 45 + 168,
        "tangent neohooke": 2 * 144 + 63 + 117 + 139 + 300 + 3 + 2 * 45 + 9
@@ -89,8 +111,22 @@ ELEM_FLOPS = {
     ("tangent_gen", "linear (u=0)"): 8 * (196 + 144 + 45 + 9 + 16 + 45 + 168)
     + 24,
 }
-NUM = {"force": "B1", "tangent": "B2", "stencil": "B3", "force_gen": "B4",
-       "tangent_gen": "B5"}
+# B6/B7: B4/B5 on an element batch, without the gather pass
+for _kind in ("neohooke", "svk", "mass-only", "neohooke+mass"):
+    ELEM_FLOPS[("solid_force", _kind)] = ELEM_FLOPS[("force_gen", _kind)] - 24
+for _kind in ("neohooke", "neohooke+mass"):
+    ELEM_FLOPS[("solid_tangent", _kind)] = \
+        ELEM_FLOPS[("tangent_gen", _kind)] - 24
+
+
+def launches():
+    return {**lk.launches, "solid_force": sk.launches["force"],
+            "solid_tangent": sk.launches["tangent"]}
+
+
+def reset_launches():
+    lk.reset_launches()
+    sk.reset_launches()
 
 
 def log(phase, msg):
@@ -126,20 +162,23 @@ def phase_environment():
 def phase_build():
     """Build the kernels; print each kernel's ptxas registers and spills."""
     t0 = time.perf_counter()
-    path = lk.build()
-    log("build", f"{path.name} in {time.perf_counter() - t0:.1f} s")
-    name = "?"
-    for line in path.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '_ZN5fourc\d+(\w+?_kernel)"
-                      r"I([fd])(Lb([01])E)?", line)
-        if m:
-            name = (f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
-                    f"{', linear' if m.group(4) == '1' else ''}>")
-        elif "spill stores" in line:
-            spills = line.strip()
-        elif "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line).group(1)
-            log("build", f"{name}: {regs} registers, {spills}")
+    paths = cuda_build.build_all()
+    log("build", f"{', '.join(p.name for p in paths.values())} in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    for path in paths.values():
+        name = "?"
+        for line in path.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '_ZN5fourc\d+"
+                          r"(\w+?_kernel)I([fd])(Lb([01])E)?", line)
+            if m:
+                name = (f"{m.group(1)}<"
+                        f"{'float' if m.group(2) == 'f' else 'double'}"
+                        f"{', linear' if m.group(4) == '1' else ''}>")
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                log("build", f"{name}: {regs} registers, {spills}")
 
 
 def _time(fn, reps=20):
@@ -189,6 +228,72 @@ def jitter(disc, n):
     return disc
 
 
+def permute(disc):
+    """bench.py's permuted mesh: the nodes renumbered at random
+    (np.random.RandomState(1)) in coordinates, connectivity, node sets and
+    face sets, so that no lattice survives in the connectivity."""
+    rng = np.random.RandomState(1)
+    perm = rng.permutation(disc.n_nodes).astype(np.int32)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(disc.n_nodes, dtype=np.int32)
+    disc.coords = np.array(disc.coords)[perm]
+    for blk in disc.blocks.values():
+        blk.conn = inv[blk.conn]
+    for nm in disc.node_sets:
+        disc.node_sets[nm] = inv[disc.node_sets[nm]]
+    for fbs in disc.face_sets.values():
+        for fb in fbs:
+            fb.conn = inv[fb.conn]
+    return disc
+
+
+def make_mesh(n, mesh):
+    """The n^3 box of a path: flagship, jittered or permuted (jittered,
+    then renumbered)."""
+    disc = gridgen.box(n, n, n)
+    if mesh in ("jittered", "permuted"):
+        jitter(disc, n)
+    if mesh == "permuted":
+        permute(disc)
+    return disc
+
+
+def _solid_cases(n, dtype, rng, lam, mu, mcoef):
+    """(key, case, kernel, twin, inputs) for B6 and B7 on the element batch
+    of the permuted n^3 box."""
+    disc = make_mesh(n, "permuted")
+    conn = disc.blocks["hex8"].conn
+
+    def batch(nodal):  # (n_nodes, 3) -> (24, E) on the card
+        return torch.as_tensor(nodal[conn].reshape(-1, 24).T, dtype=dtype,
+                               device="cuda").contiguous()
+
+    X = batch(disc.coords)
+    u = batch(rng.normal(size=disc.coords.shape) * 5e-2 / n)
+    v = batch(rng.normal(size=disc.coords.shape) / n)
+    cases = []
+    for case, model, mc, stiff in (("neohooke", "neohooke", 0.0, True),
+                                   ("svk", "svk", 0.0, True),
+                                   ("mass-only", "svk", 1.0, False),
+                                   ("neohooke+mass", "neohooke", mcoef,
+                                    True)):
+        cases.append((
+            "solid_force", case,
+            lambda m=model, c=mc, s=stiff: sk.hex8_force(X, u, lam, mu, m,
+                                                         c, s),
+            lambda m=model, c=mc, s=stiff: sops.hex8_force_ref(X, u, lam, mu,
+                                                               m, c, s),
+            (X, u)))
+    for case, mc in (("neohooke", 0.0), ("neohooke+mass", mcoef)):
+        cases.append((
+            "solid_tangent", case,
+            lambda c=mc: sk.hex8_tangent(X, u, v, lam, mu, "neohooke", c),
+            lambda c=mc: sops.hex8_tangent_ref(X, u, v, lam, mu, "neohooke",
+                                               c),
+            (X, u, v)))
+    return cases
+
+
 def _kernel_cases(n, dtype, rng, cell, lam, mu, mcoef):
     """(key, case, kernel, twin, inputs) for every kernel at size n: B1-B3
     on the uniform box, B4-B5 on the jittered box; the first case of each
@@ -222,7 +327,7 @@ def _kernel_cases(n, dtype, rng, cell, lam, mu, mcoef):
             lambda c=mc: lat.neo_jvp_ref(ul, vl, Gt, wt, lam, mu, "neohooke",
                                          N=Nt, mcoef=c),
             (ul, vl)))
-    disc = jitter(gridgen.box(n, n, n), n)
+    disc = make_mesh(n, "jittered")
     x = lat.coord_lattice(disc.coords, spec, dtype, "cuda")
     tab = (t(cell.dN), t(cell.gauss_weights), Nt)
     for case, model, mc, stiff in (("neohooke", "neohooke", 0.0, True),
@@ -251,19 +356,23 @@ def _kernel_cases(n, dtype, rng, cell, lam, mu, mcoef):
 
 
 def phase_kernels():
-    """Each kernel against its twin; returns per-kernel n=72 f32 results
-    (times and bound of the first case of each kernel, the largest error
-    over its cases)."""
-    results = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    """Each kernel against its twin; returns per-kernel float32 results at
+    the full size of the kernel's path (times and bound of the first case of
+    each kernel, the largest error over its cases)."""
+    results = {k: {"max_abs_err": 0.0} for k in KERNELS}
     cell = cells.get_cell("hex8")
     lam, mu = lame(1.0e4, 0.3)
     mcoef = 9930.0  # rho (1-am) / ((1-af) beta dt^2) at dt=0.02, rho_inf 0.9
-    for n in (16, 72):
+    sizes = ((16, "lattice"), (16, "solid"), (FULL_N["flagship"], "lattice"),
+             (FULL_N["permuted"], "solid"))
+    for n, group in sizes:
         rng = np.random.default_rng(n)
         for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
-            for key, case, kern, twin, ins in _kernel_cases(
-                    n, dtype, rng, cell, lam, mu, mcoef):
-                label = f"{NUM[key]} {case}"
+            cases = (_kernel_cases(n, dtype, rng, cell, lam, mu, mcoef)
+                     if group == "lattice"
+                     else _solid_cases(n, dtype, rng, lam, mu, mcoef))
+            for key, case, kern, twin, ins in cases:
+                label = f"{KERNELS[key][0]} {case}"
                 got, want = kern(), twin()
                 torch.cuda.synchronize()
                 if not (torch.isfinite(got).all()
@@ -276,14 +385,14 @@ def phase_kernels():
                 if not rel <= tol:
                     raise RuntimeError(f"{label} n={n} {dtype}: rel err "
                                        f"{rel:.3e} > {tol:g}")
-                if n != 72 or dtype != torch.float32:
+                if n == 16 or dtype != torch.float32:
                     continue
                 r = results[key]
                 r["max_abs_err"] = max(r["max_abs_err"], abs_err)
                 ms = _time(kern)
                 bound, by = _bound(key, case, n, ins + (got,))
-                msg = (f"{label:22s} n=72 float32: kernel {ms:.4f} ms, bound "
-                       f"{bound:.4f} ms ({by}), roofline share "
+                msg = (f"{label:22s} n={n} float32: kernel {ms:.4f} ms, "
+                       f"bound {bound:.4f} ms ({by}), roofline share "
                        f"{bound / ms:.1%}")
                 if "ms" not in r:
                     r.update(ms=ms, plain_ms=_time(twin, reps=5),
@@ -294,12 +403,12 @@ def phase_kernels():
     return results
 
 
-def build_problem(n, device, dtype, jittered=False):
-    """bench.py's flagship problem (f32 Newton settings for float32); with
-    ``jittered``, its ``unstructured_1M`` variant on the jittered box."""
-    disc = gridgen.box(n, n, n)
-    if jittered:
-        jitter(disc, n)
+def build_problem(n, device, dtype, mesh="flagship"):
+    """bench.py's problem (f32 Newton settings for float32) on one of its
+    meshes: ``flagship`` (the uniform box), ``jittered`` (its
+    ``unstructured_1M`` variant) or ``permuted`` (``permuted_500k``, whose
+    ``gmg`` falls back to SA-AMG)."""
+    disc = make_mesh(n, mesh)
     ndof = disc.n_nodes * 3
     mat = materials.make_material({"type": "neohooke", "youngs": 1.0e4,
                                    "nue": 0.3, "density": 1.0})
@@ -327,14 +436,25 @@ def build_problem(n, device, dtype, jittered=False):
                          functions=fm, device=device, dtype=dtype)
 
 
+def make_step(f, name):
+    """ps.make_step; on the permuted box the ``gmg`` request must warn that
+    it falls back to SA-AMG, on the others nothing may warn."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = ps.make_step(f, dt=0.02)
+    msgs = [str(w.message) for w in caught]
+    if (name == "permuted") != any("SA-AMG" in m for m in msgs):
+        raise RuntimeError(f"{name}: unexpected warnings {msgs}")
+    return step
+
+
 def phase_correctness():
-    for jittered in (False, True):
-        name = "jittered" if jittered else "flagship"
+    for name in FULL_N:
         out = {}
         for device in ("cuda", "cpu"):
-            f = build_problem(6, device, torch.float64, jittered)
+            f = build_problem(6, device, torch.float64, name)
             state = ps.compute_initial_state(f, ps.init_state(f))
-            step = ps.make_step(f, dt=0.02)
+            step = make_step(f, name)
             for _ in range(2):
                 state, stats = step(state)
                 if not stats["converged"]:
@@ -352,24 +472,42 @@ def phase_correctness():
                                    f"step on {k}")
 
 
-def phase_main_path(name, n=72, n_steps=5):
+def _log_amg(name, M):
+    """SA-AMG setup by stage, the levels and the dense coarse factor."""
+    log(name, "AMG setup seconds by stage: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in M.timings.items()))
+    info = M.describe()
+    for i, lev in enumerate(info["levels"]):
+        log(name, f"AMG level {i}: {lev['nodes']} nodes, ELL widths "
+                  + ", ".join(f"{k} {v}" for k, v in lev.items()
+                              if k != "nodes"))
+    log(name, f"AMG dense coarse factor: {info['coarse_dofs']} dofs, "
+              f"{info['coarse_bytes'] / 2**30:.3f} GiB")
+
+
+def phase_main_path(name, n_steps=5):
     """One path at full size; returns the launches of its run."""
+    n = FULL_N[name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    f = build_problem(n, "cuda", torch.float32, jittered=name == "jittered")
+    f = build_problem(n, "cuda", torch.float32, name)
     torch.cuda.synchronize()
-    log(name, f"n={n}: {f.ndof} dofs, "
-              f"{'general' if f.x is not None else 'uniform'} geometry, "
-              f"field built in {time.perf_counter() - t0:.1f} s")
-    lk.reset_launches()
+    kind = ("general topology" if f.lattice is None else
+            "general geometry" if f.x is not None else "uniform geometry")
+    log(name, f"n={n}: {f.ndof} dofs, {kind}, field built in "
+              f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
     t0 = time.perf_counter()
     state = ps.compute_initial_state(f, ps.init_state(f))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    step = ps.make_step(f, dt=0.02)
+    step = make_step(f, name)
     torch.cuda.synchronize()
-    log(name, f"initial state {t1 - t0:.2f} s, GMG setup "
+    log(name, f"initial state {t1 - t0:.2f} s, "
+              f"{'SA-AMG' if f.lattice is None else 'GMG'} setup "
               f"{time.perf_counter() - t1:.2f} s")
+    if f.lattice is None:
+        _log_amg(name, step.precond)
     t0 = time.perf_counter()
     state, stats = step(state)
     torch.cuda.synchronize()
@@ -384,7 +522,7 @@ def phase_main_path(name, n=72, n_steps=5):
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / n_steps
     all_stats += timed
-    launches = dict(lk.launches)
+    counts = launches()
     for i, st in enumerate(all_stats):
         log(name, f"step {i}: newton {st['iters']}, cg "
                   f"{st['lin_iters']}, resnorm {st['resnorm']:.4e}, "
@@ -392,7 +530,8 @@ def phase_main_path(name, n=72, n_steps=5):
         if not (st["converged"] and np.isfinite(st["resnorm"])):
             raise RuntimeError(f"{name} step {i} did not converge")
     d = state["d"]
-    if tuple(d.shape) != f.lattice.lshape or not torch.isfinite(d).all():
+    shape = (f.ndof,) if f.lattice is None else f.lattice.lshape
+    if tuple(d.shape) != shape or not torch.isfinite(d).all():
         raise RuntimeError(f"{name} displacement has a wrong shape or "
                            f"non-finite values")
     newton = sum(st["iters"] for st in timed)
@@ -401,12 +540,13 @@ def phase_main_path(name, n=72, n_steps=5):
               f"({newton} Newton, {cg} CG iterations in total), "
               f"max|d| {float(d.abs().max()):.4e}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(name, f"launches {launches}")
-    for k, path in PATH_OF.items():
-        if path == name and launches[k] <= 0:
-            raise RuntimeError(f"kernel {k} was not launched on the {name} "
-                               f"path")
-    return launches
+    log(name, f"launches {counts}")
+    for k, (num, *_, path) in KERNELS.items():
+        if (path == name) != (counts[k] > 0):
+            raise RuntimeError(
+                f"kernel {num} {k} was launched {counts[k]} times on the "
+                f"{name} path")
+    return counts
 
 
 def main():
@@ -414,15 +554,14 @@ def main():
     phase_build()
     results = phase_kernels()
     phase_correctness()
-    launches = {name: phase_main_path(name)
-                for name in ("flagship", "jittered")}
-    kernels = [{"name": f"lattice_{k}", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k],
-                "launches": launches[PATH_OF[k]][k],
+    counts = {name: phase_main_path(name) for name in FULL_N}
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"fourc_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": counts[path][k],
                 **{f: results[k][f] for f in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
-               for k in REPLACES]
+               for k, (_, name, source, replaces, path) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -22,8 +22,11 @@ JAX_WIDE_GUARD = 8  # x guard band of the JAX wide layout (BX)
 
 
 def lattice_from_jax(x, pshape):
-    """A JAX dof vector (flat or wide) -> the port's padded lattice."""
+    """A JAX dof vector (flat or wide) -> the port's padded lattice; with
+    ``pshape=None`` (a mesh of general topology) the flat vector as it is."""
     x = np.asarray(x)
+    if pshape is None:
+        return x.copy()
     px, py, pz = pshape
     if x.ndim == 1:
         lat = np.moveaxis(x.reshape(px, py, pz, 3), -1, 0)
@@ -39,8 +42,8 @@ def flat_from_lattice(x):
 
 
 def state_from_jax(state, pshape):
-    """JAX solid state dict -> port state arrays (lattice layout), plus the
-    time and the step counter."""
+    """JAX solid state dict -> port state arrays (lattice layout, or flat
+    dof vectors with ``pshape=None``), plus the time and the step counter."""
     out = {k: lattice_from_jax(state[k], pshape) for k in STATE_FIELDS}
     out["t"] = float(np.asarray(state["t"]))
     out["step"] = int(np.asarray(state["step"]))
@@ -83,3 +86,26 @@ def gmg_levels_from_jax(gmg):
             "degree": int(lv.degree),
         })
     return levels
+
+
+def amg_from_jax(M):
+    """The V-cycle data of a JAX SmoothedAggregationAMG as numpy arrays,
+    under the keys that linalg/amg.py:amg_from_data reads (those of both
+    packages' npz files): per level ``dinv``, ``lmax`` and the ``nbr``,
+    ``blk`` and column count of its A, P and R tables, and the dense coarse
+    factor."""
+    data = {"n_levels": np.asarray(len(M.levels)),
+            "coarse_inv": np.asarray(M._coarse_inv),
+            "cheby_degree": np.asarray(M.cheby_degree),
+            "ndpn": np.asarray(M.ndpn)}
+    for i, lev in enumerate(M.levels):
+        data[f"l{i}_dinv"] = np.asarray(lev["dinv"])
+        data[f"l{i}_lmax"] = np.asarray(lev["lmax"])
+        for nm in ("A", "P", "R"):
+            op = lev[nm]
+            if op is None:
+                continue
+            data[f"l{i}_{nm}_nbr"] = np.asarray(op.nbr)
+            data[f"l{i}_{nm}_blk"] = np.asarray(op.blk)
+            data[f"l{i}_{nm}_ncols"] = np.asarray(op.n_cols)
+    return data

@@ -1,12 +1,15 @@
-"""Discretization: mesh arrays, node/face sets and the structured dof map.
+"""Discretization: mesh arrays, node/face sets and the dof map.
 
-Counterpart of fourc_tpu/core/mesh.py for the lattice slices.  A mesh is a
-set of numpy arrays grouped by cell type.  Only structured blocks (the
-canonical lexicographic hex8 lattice that ``gridgen.box`` writes) get a dof
-map.  A block is structured by provenance (``structured_shape``) or, without
-it, when its connectivity alone is the canonical lattice; node coordinates
-play no part, so a jittered box keeps its lattice.  General gather/scatter
-assembly belongs to a later slice.
+Counterpart of fourc_tpu/core/mesh.py.  A mesh is a set of numpy arrays
+grouped by cell type.  A block is structured (the canonical lexicographic
+hex8 lattice that ``gridgen.box`` writes) by provenance
+(``structured_shape``) or, without it, when its connectivity alone is the
+canonical lattice; node coordinates play no part, so a jittered box keeps
+its lattice.  Any other block has general topology: its dof map gathers
+element values through the connectivity and assembles element vectors
+through a node-incidence table, a gather and a sum over a small axis, with
+no atomics, so that sums are deterministic (the reference's form; its
+sorted ``segment_sum`` route is not ported).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 HEX8_OFFSETS = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
                 (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1))
@@ -138,13 +142,70 @@ def _detect_conn_lattice(disc: Discretization, blk: ElementBlock):
 
 @dataclass
 class BlockAssembly:
+    """Assembly data of one element block.  ``structured`` holds shape,
+    pshape and offsets of a lattice block, None for general topology.
+
+    ``inc_clip`` (n_nodes, kmax) lists, per node, the rows ``e * nen + a``
+    of the elements' node contributions that belong to it; ``inc_w`` is 1 for
+    a real slot and 0 for the padding of nodes with fewer than kmax elements
+    (padding indices are clipped to 0).  Both are None on a structured block.
+    """
+
     cell: str
-    structured: dict  # shape, pshape, offsets of the lattice
+    structured: dict | None
+    conn: np.ndarray  # (n_ele, nen) int32
+    inc_clip: np.ndarray | None = None  # (n_nodes, kmax) int32
+    inc_w: np.ndarray | None = None  # (n_nodes, kmax) float32 0/1
+    _tables: dict = field(default_factory=dict, repr=False)
+
+    def tables(self, ndpn: int, device):
+        """Index tensors for the element-batch layout (nen*ndpn, E), row
+        a*ndpn+i, on ``device``, int64 because torch indexing takes that:
+        edof (nen*ndpn, E), the global dof of each entry; inc
+        (n_nodes, kmax, ndpn), for each dof and slot the flat index of its
+        contribution in a (nen*ndpn, E) array; w (n_nodes, kmax, 1) bool,
+        False on padding slots.  Made once per device."""
+        key = (ndpn, str(device))
+        if key not in self._tables:
+            self._tables[key] = self._make_tables(ndpn, device)
+        return self._tables[key]
+
+    def _make_tables(self, ndpn, device):
+        E, nen = self.conn.shape
+        conn = torch.as_tensor(self.conn, dtype=torch.int64, device=device)
+        comp = torch.arange(ndpn, device=device)
+        edof = (conn.T[:, None, :] * ndpn + comp[None, :, None]).reshape(
+            nen * ndpn, E)
+        row = torch.as_tensor(self.inc_clip, dtype=torch.int64, device=device)
+        e, a = row // nen, row % nen
+        inc = ((a * ndpn)[..., None] + comp) * E + e[..., None]
+        w = torch.as_tensor(self.inc_w > 0, device=device)[..., None]
+        return edof.contiguous(), inc.contiguous(), w
+
+
+def _incidence(conn: np.ndarray, n_nodes: int):
+    """Node-incidence gather table of a connectivity: (inc_clip, inc_w)."""
+    flat_nodes = conn.reshape(-1).astype(np.int64)
+    counts = np.bincount(flat_nodes, minlength=n_nodes)
+    kmax = max(int(counts.max()) if counts.size else 1, 1)
+    starts = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    order = np.argsort(flat_nodes, kind="stable")
+    nodes_sorted = flat_nodes[order]
+    slots = np.arange(flat_nodes.size) - starts[nodes_sorted]
+    pad = flat_nodes.size
+    inc = np.full((n_nodes, kmax), pad, np.int32)
+    inc[nodes_sorted, slots] = order.astype(np.int32)
+    return (np.where(inc == pad, 0, inc).astype(np.int32),
+            (inc != pad).astype(np.float32))
 
 
 @dataclass
 class DofMap:
-    """Dof layout ``dof = node * ndpn + component`` for structured blocks."""
+    """Dof layout ``dof = node * ndpn + component`` and, for blocks of
+    general topology, gather and deterministic assembly in the element-batch
+    layout (nen*ndpn, E): row a*ndpn+i is component i of local node a, one
+    column per element (what the element kernels take and return)."""
 
     ndpn: int
     ndof: int
@@ -155,9 +216,33 @@ class DofMap:
         out = {}
         for key, blk in disc.blocks.items():
             st = _detect_structured(disc, blk)
+            inc_clip = inc_w = None
             if st is None:
-                raise NotImplementedError(
-                    f"block {key!r} is not a structured hex8 lattice; "
-                    "unstructured assembly is not ported yet")
-            out[key] = BlockAssembly(cell=blk.cell, structured=st)
+                inc_clip, inc_w = _incidence(blk.conn, disc.n_nodes)
+            out[key] = BlockAssembly(cell=blk.cell, structured=st,
+                                     conn=blk.conn, inc_clip=inc_clip,
+                                     inc_w=inc_w)
         return DofMap(ndpn=ndpn, ndof=disc.n_nodes * ndpn, blocks=out)
+
+    def _general(self, key) -> BlockAssembly:
+        ba = self.blocks[key]
+        if ba.structured is not None:
+            raise ValueError(f"block {key!r} is a lattice: its operators "
+                             "work on the lattice layout (ops/lattice.py)")
+        return ba
+
+    def gather(self, u: torch.Tensor, key: str) -> torch.Tensor:
+        """Global dof vector -> element values (nen*ndpn, E)."""
+        edof, _, _ = self._general(key).tables(self.ndpn, u.device)
+        return u[edof]
+
+    def scatter_add(self, per_block: dict) -> torch.Tensor:
+        """Sum element vectors, per_block[key] (nen*ndpn, E), into a global
+        dof vector: each dof gathers its contributions in slot order."""
+        total = None
+        for key, fe in per_block.items():
+            _, inc, w = self._general(key).tables(self.ndpn, fe.device)
+            contrib = torch.where(w, fe.reshape(-1)[inc], 0.0)
+            part = contrib.sum(dim=1).reshape(-1)
+            total = part if total is None else total + part
+        return total

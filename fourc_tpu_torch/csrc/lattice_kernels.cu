@@ -60,7 +60,6 @@
 namespace fourc {
 
 constexpr int kStencilThreads = 256;
-constexpr int kElemThreads = 128;
 constexpr int kGatherThreads = 256;
 
 struct Dims {
@@ -119,24 +118,6 @@ stencil_kernel(const T* __restrict__ Kg, const T* __restrict__ v,
 // B1 / B2 element pass: one thread per real element
 // ---------------------------------------------------------------------------
 
-// geometry tables in shared memory: G[g][a][j] (192), wdet[g] (8), N[g][a] (64)
-template <typename T>
-struct GeomShared {
-  T G[8][8][3];
-  T w[8];
-  T N[8][8];
-};
-
-template <typename T>
-__device__ __forceinline__ void load_geom(GeomShared<T>& s, const T* G, const T* w,
-                                          const T* N) {
-  for (int t = threadIdx.x; t < 192; t += blockDim.x) (&s.G[0][0][0])[t] = G[t];
-  for (int t = threadIdx.x; t < 8; t += blockDim.x) s.w[t] = w[t];
-  if (N != nullptr)
-    for (int t = threadIdx.x; t < 64; t += blockDim.x) (&s.N[0][0])[t] = N[t];
-  __syncthreads();
-}
-
 template <typename T>
 __device__ __forceinline__ void load_corners(const T* __restrict__ x, const Dims& d,
                                              long long e, T xe[8][3]) {
@@ -149,64 +130,6 @@ __device__ __forceinline__ void load_corners(const T* __restrict__ x, const Dims
 #pragma unroll
     for (int c = 0; c < 3; ++c) xe[a][c] = x[c * d.n + q];
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void grad(const T xe[8][3], const T G[8][3], T H[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-#pragma unroll
-      for (int a = 0; a < 8; ++a) s += xe[a][i] * G[a][j];
-      H[i][j] = s;
-    }
-}
-
-// fe[a][i] += wg * sum_j P[i][j] G[a][j]
-template <typename T>
-__device__ __forceinline__ void accum(const T P[3][3], const T G[8][3], T wg,
-                                      T fe[8][3]) {
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      fe[a][i] += wg * (P[i][0] * G[a][0] + P[i][1] * G[a][1] + P[i][2] * G[a][2]);
-}
-
-template <typename T>
-__device__ __forceinline__ void store_fe(const T fe[8][3], long long e, long long E,
-                                         T* __restrict__ scratch) {
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) scratch[(a * 3 + i) * E + e] = fe[a][i];
-}
-
-// consistent mass of one Gauss point: fe[a] += c N[a] (sum_b N[b] ve[b])
-template <typename T>
-__device__ __forceinline__ void mass_accum(const T ve[8][3], const T N[8], T c,
-                                           T fe[8][3]) {
-  T vbar[3] = {T(0), T(0), T(0)};
-#pragma unroll
-  for (int b = 0; b < 8; ++b)
-#pragma unroll
-    for (int k = 0; k < 3; ++k) vbar[k] += N[b] * ve[b][k];
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const T ca = c * N[a];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) fe[a][k] += ca * vbar[k];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void zero_fe(T fe[8][3]) {
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) fe[a][i] = T(0);
 }
 
 // model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff
@@ -272,38 +195,11 @@ tangent_elem_kernel(const T* __restrict__ u, const T* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// B4 / B5 element pass on general geometry: one thread per real element
+// B4 / B5 element pass on general geometry: one thread per real element; the
+// Gauss loops (force_gen_element, tangent_gen_element) are shared with the
+// element-batch kernels of solid_kernels.cu through lattice_common.cuh
 // (shared tables: s.G holds the reference gradients dN[g][a][j], not G)
 // ---------------------------------------------------------------------------
-
-// Jinv and det of J = sum_a x_a dN_a^T (J_ij = dx_i / dxi_j)
-template <typename T>
-__device__ __forceinline__ void jacobian(const T xe[8][3], const T dN[8][3],
-                                         T Jinv[3][3], T& det) {
-  T J[3][3], C[3][3];
-  grad(xe, dN, J);
-  cof3(J, C);
-  det = det3(J);
-  inv_from_cof(C, det, Jinv);
-}
-
-// cartesian gradient H = (sum_a ue_a dN_a^T) Jinv
-template <typename T>
-__device__ __forceinline__ void grad_gen(const T ue[8][3], const T dN[8][3],
-                                         const T Jinv[3][3], T H[3][3]) {
-  T Hh[3][3];
-  grad(ue, dN, Hh);
-  mm(Hh, Jinv, H);
-}
-
-// fe_a += wdet P G_a with G_a = Jinv^T dN_a, as fe_a += wdet (P Jinv^T) dN_a
-template <typename T>
-__device__ __forceinline__ void accum_gen(const T P[3][3], const T Jinv[3][3],
-                                          const T dN[8][3], T wdet, T fe[8][3]) {
-  T Q[3][3];
-  mm_abt(P, Jinv, Q);
-  accum(Q, dN, wdet, fe);
-}
 
 // model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff; stiff = 0 skips the force
 // (mass-only mode); mcoef = 0 skips the mass
@@ -320,39 +216,11 @@ force_gen_elem_kernel(const T* __restrict__ x, const T* __restrict__ u,
   T xe[8][3], ue[8][3], fe[8][3];
   load_corners(x, d, e, xe);
   load_corners(u, d, e, ue);
-  zero_fe(fe);
-#pragma unroll 1
-  for (int g = 0; g < 8; ++g) {
-    T J[3][3];
-    grad(xe, s.G[g], J);
-    const T det = det3(J);
-    const T wdet = det * s.w[g];
-    if (stiff) {  // the mass needs only det J
-      T C[3][3], Jinv[3][3], H[3][3], A[3][3], S[3][3], F[3][3], P[3][3];
-      cof3(J, C);
-      inv_from_cof(C, det, Jinv);
-      grad_gen(ue, s.G[g], Jinv, H);
-      strain_A(H, A);
-      if (model == 0) {
-        NeoAux<T> aux;
-        stress_neohooke(A, lam, mu, S, aux);
-      } else {
-        stress_svk(A, lam, mu, S);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
-      mm(F, S, P);
-      accum_gen(P, Jinv, s.G[g], wdet, fe);
-    }
-    if (mcoef != T(0)) mass_accum(ue, s.N[g], mcoef * wdet, fe);
-  }
+  force_gen_element(xe, ue, s, lam, mu, model, mcoef, stiff, fe);
   store_fe(fe, e, d.E, scratch);
 }
 
-// kLinear: u = 0 (u is not read), where every law is linear elasticity,
-// Pd = lam tr(Hd) I + mu (Hd + Hd^T)
+// kLinear: u = 0 (u is not read)
 template <typename T, bool kLinear>
 __global__ void __launch_bounds__(kElemThreads)
 tangent_gen_elem_kernel(const T* __restrict__ x, const T* __restrict__ u,
@@ -367,29 +235,7 @@ tangent_gen_elem_kernel(const T* __restrict__ x, const T* __restrict__ u,
   load_corners(x, d, e, xe);
   if constexpr (!kLinear) load_corners(u, d, e, ue);
   load_corners(v, d, e, ve);
-  zero_fe(fe);
-#pragma unroll 1
-  for (int g = 0; g < 8; ++g) {
-    T Jinv[3][3], det;
-    jacobian(xe, s.G[g], Jinv, det);
-    const T wdet = det * s.w[g];
-    T Hd[3][3], Pd[3][3];
-    grad_gen(ve, s.G[g], Jinv, Hd);
-    if constexpr (kLinear) {
-      T Ad[3][3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) Ad[i][j] = Hd[i][j] + Hd[j][i];
-      stress_svk(Ad, lam, mu, Pd);
-    } else {
-      T H[3][3];
-      grad_gen(ue, s.G[g], Jinv, H);
-      tangent_stress(H, Hd, lam, mu, model, Pd);
-    }
-    accum_gen(Pd, Jinv, s.G[g], wdet, fe);
-    if (mcoef != T(0)) mass_accum(ve, s.N[g], mcoef * wdet, fe);
-  }
+  tangent_gen_element<T, kLinear>(xe, ue, ve, s, lam, mu, model, mcoef, fe);
   store_fe(fe, e, d.E, scratch);
 }
 
@@ -420,10 +266,6 @@ gather_kernel(const T* __restrict__ scratch, Dims d, T* __restrict__ out) {
   out[p] = s0;
   out[d.n + p] = s1;
   out[2 * d.n + p] = s2;
-}
-
-inline unsigned int blocks_for(long long n, int threads) {
-  return (unsigned int)((n + threads - 1) / threads);
 }
 
 template <typename T>

@@ -19,7 +19,10 @@ The functions ``stencil_matvec_ref``, ``neo_force_ref``, ``neo_jvp_ref``,
 the five CUDA kernels: the same math, in shift form over the real element
 grid (no ghost-element masks needed).  The tangents are the hand-propagated
 dual of the force, not autograd, so they check the same algebra the tangent
-kernels run.
+kernels run.  The general-geometry twins are ``force_gen_elements`` and
+``jvp_gen_elements`` (element vectors of any batch of elements from their
+corners) between a lattice's corner slices and its assembly; the
+element-batch twins of ops/solid.py call the same two functions.
 """
 
 from __future__ import annotations
@@ -285,7 +288,7 @@ def _tangent_stress(H, Hd, lam, mu, model):
 def _mass_gp(ve, Ng, c):
     """One Gauss point of the consistent mass: c N (N^T v), per element."""
     vbar = torch.einsum("b,bc...->c...", Ng, ve)
-    return c * Ng[:, None, None, None, None] * vbar
+    return c * torch.einsum("a,c...->ac...", Ng, vbar)
 
 
 def neo_jvp_ref(u, v, G, wdet, lam, mu, model="neohooke", N=None, mcoef=0.0):
@@ -315,16 +318,16 @@ def _geom_gp(xe, dN_g, w_g):
     return torch.einsum("aj,ji...->ai...", dN_g, Jinv), det * w_g
 
 
-def neo_force_gen_ref(x, u, dN, w, N, lam, mu, model="neohooke", mcoef=0.0,
-                      stiff=True):
-    """General-geometry internal force sum_g wdet_g P(F_g) G_g (when
-    ``stiff``) plus the consistent mass applied to u,
-    ``mcoef * sum_g wdet_g N N^T u`` (when mcoef != 0).  x is the coordinate
-    lattice; dN (8, 8, 3), w (8,) and N (8, 8) are the hex8 reference
-    gradients, Gauss weights and shape functions at the Gauss points."""
+def force_gen_elements(xe, ue, dN, w, N, lam, mu, model="neohooke",
+                       mcoef=0.0, stiff=True):
+    """General-geometry element vectors of a batch of hex8 elements, any
+    batch shape: corner coordinates xe and values ue (8, 3, ...) ->
+    fe (8, 3, ...) = sum_g wdet_g P(F_g) G_g (when ``stiff``)
+    + mcoef * sum_g wdet_g N N^T ue (consistent mass, when mcoef != 0).
+    dN (8, 8, 3), w (8,) and N (8, 8) are the hex8 reference gradients,
+    Gauss weights and shape functions at the Gauss points."""
     stress = STRESS[model][0]
-    dN, w, N = _as(dN, u), _as(w, u), _as(N, u)
-    xe, ue = torch.stack(_corners(x)), torch.stack(_corners(u))
+    dN, w, N = _as(dN, ue), _as(w, ue), _as(N, ue)
     fe = torch.zeros_like(ue)
     for g in range(dN.shape[0]):
         G, wdet = _geom_gp(xe, dN[g], w[g])
@@ -335,18 +338,15 @@ def neo_force_gen_ref(x, u, dN, w, N, lam, mu, model="neohooke", mcoef=0.0,
             fe += wdet * torch.einsum("ij...,aj...->ai...", P, G)
         if mcoef:
             fe += _mass_gp(ue, N[g], mcoef * wdet)
-    return _assemble(fe, u)
+    return fe
 
 
-def neo_jvp_gen_ref(x, u, v, dN, w, N, lam, mu, model="neohooke",
-                    mcoef=0.0):
-    """General-geometry tangent apply K(u) v, the hand-propagated dual of
-    neo_force_gen_ref, plus ``mcoef * sum_g wdet_g N N^T v`` when
-    mcoef != 0.  ``u=None`` means u = 0: the linear-elastic operator (the
-    exact-geometry GMG level operator), which reads no u."""
-    dN, w, N = _as(dN, v), _as(w, v), _as(N, v)
-    xe, ve = torch.stack(_corners(x)), torch.stack(_corners(v))
-    ue = None if u is None else torch.stack(_corners(u))
+def jvp_gen_elements(xe, ue, ve, dN, w, N, lam, mu, model="neohooke",
+                     mcoef=0.0):
+    """The hand-propagated dual of force_gen_elements along ve:
+    K(ue) ve + mcoef * sum_g wdet_g N N^T ve per element.  ``ue=None`` means
+    u = 0: the linear-elastic operator, which reads no u."""
+    dN, w, N = _as(dN, ve), _as(w, ve), _as(N, ve)
     fe = torch.zeros_like(ve)
     for g in range(dN.shape[0]):
         G, wdet = _geom_gp(xe, dN[g], w[g])
@@ -356,4 +356,26 @@ def neo_jvp_gen_ref(x, u, v, dN, w, N, lam, mu, model="neohooke",
         fe += wdet * torch.einsum("ij...,aj...->ai...", Pd, G)
         if mcoef:
             fe += _mass_gp(ve, N[g], mcoef * wdet)
+    return fe
+
+
+def neo_force_gen_ref(x, u, dN, w, N, lam, mu, model="neohooke", mcoef=0.0,
+                      stiff=True):
+    """General-geometry internal force (when ``stiff``) plus the consistent
+    mass applied to u (when mcoef != 0) on a lattice: force_gen_elements of
+    every real element, assembled.  x is the coordinate lattice."""
+    fe = force_gen_elements(torch.stack(_corners(x)), torch.stack(_corners(u)),
+                            dN, w, N, lam, mu, model, mcoef, stiff)
+    return _assemble(fe, u)
+
+
+def neo_jvp_gen_ref(x, u, v, dN, w, N, lam, mu, model="neohooke",
+                    mcoef=0.0):
+    """General-geometry tangent apply K(u) v plus ``mcoef * M v`` on a
+    lattice: jvp_gen_elements of every real element, assembled.  ``u=None``
+    means u = 0 (the exact-geometry GMG level operator)."""
+    ue = None if u is None else torch.stack(_corners(u))
+    fe = jvp_gen_elements(torch.stack(_corners(x)), ue,
+                          torch.stack(_corners(v)), dN, w, N, lam, mu, model,
+                          mcoef)
     return _assemble(fe, v)

@@ -22,33 +22,25 @@ ops/lattice.py; a CUDA tensor launches the kernel on the current stream or
 raises.  Nothing falls back.  ``launches`` counts the kernel launches of
 each wrapper (CPU twin calls are not counted).
 
-The library is built with ``nvcc`` on first use into ``build/fourc_tpu_torch``
-under the repository root (one shared object with a plain C interface; no
-PyTorch headers, so the build takes seconds).
+The library is built with ``nvcc`` on first use (ops/cuda_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from fourc_tpu_torch.ops import cuda_build as cb
 from fourc_tpu_torch.ops import lattice as _lat
+from fourc_tpu_torch.ops.cuda_build import MODELS as _MODELS
+from fourc_tpu_torch.ops.cuda_build import SUFFIX as _SUFFIX
+from fourc_tpu_torch.ops.cuda_build import check as _check
+from fourc_tpu_torch.ops.cuda_build import ptr as _ptr
+from fourc_tpu_torch.ops.cuda_build import run as _run
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("lattice_kernels.cu", "lattice_common.cuh")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fourc_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_MODELS = {"neohooke": 0, "svk": 1}
+SOURCE = "lattice_kernels.cu"
 
 launches = {"stencil": 0, "force": 0, "tangent": 0, "force_gen": 0,
             "tangent_gen": 0}
@@ -59,83 +51,16 @@ def reset_launches():
         launches[k] = 0
 
 
-def find_nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        cand = Path(cuda_home) / "bin" / "nvcc"
-        nvcc = str(cand) if cand.exists() else None
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (PATH, CUDA_HOME or "
-                           "/usr/local/cuda/bin): cannot build the lattice "
-                           "kernels")
-    return nvcc
-
-
-def library_path() -> Path:
-    """Build output path, keyed by a hash of the sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"liblattice_{h.hexdigest()[:12]}.so"
-
-
-def build() -> Path:
-    """Compile the kernels (if this source version is not built yet) and
-    return the shared object's path.  The compiler's register and spill
-    report goes to ``<library>.log``."""
-    out = library_path()
-    if out.exists():
-        return out
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / "lattice_kernels.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 @functools.cache
 def _lib():
-    lib = ctypes.CDLL(str(build()))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for t in ("f32", "f64"):
-        f = getattr(lib, f"fourc_stencil_{t}")
-        f.argtypes = [P, P, P, I, I, I, P]
-        f.restype = I
-        f = getattr(lib, f"fourc_force_{t}")
-        f.argtypes = [P, P, P, D, D, I, P, P, I, I, I, P]
-        f.restype = I
-        f = getattr(lib, f"fourc_tangent_{t}")
-        f.argtypes = [P, P, P, P, P, D, D, I, D, P, P, I, I, I, P]
-        f.restype = I
-        f = getattr(lib, f"fourc_force_gen_{t}")
-        f.argtypes = [P, P, P, P, P, D, D, I, D, I, P, P, I, I, I, P]
-        f.restype = I
-        f = getattr(lib, f"fourc_tangent_gen_{t}")
-        f.argtypes = [P, P, P, P, P, P, D, D, I, D, P, P, I, I, I, P]
-        f.restype = I
-    return lib
-
-
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-
-
-def _check(x: torch.Tensor, like: torch.Tensor, shape, name):
-    if x.device != like.device or x.dtype != like.dtype:
-        raise ValueError(f"{name}: expected {like.dtype} on {like.device}, "
-                         f"got {x.dtype} on {x.device}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    return cb.load(SOURCE, {
+        "fourc_stencil": [P, P, P, I, I, I],
+        "fourc_force": [P, P, P, D, D, I, P, P, I, I, I],
+        "fourc_tangent": [P, P, P, P, P, D, D, I, D, P, P, I, I, I],
+        "fourc_force_gen": [P, P, P, P, P, D, D, I, D, I, P, P, I, I, I],
+        "fourc_tangent_gen": [P, P, P, P, P, P, D, D, I, D, P, P, I, I, I],
+    })
 
 
 def _dims(x: torch.Tensor):
@@ -146,16 +71,6 @@ def _dims(x: torch.Tensor):
         raise ValueError(f"lattice kernels take float32 or float64, "
                          f"got {x.dtype}")
     return tuple(int(s) - 3 for s in x.shape[1:])
-
-
-def _run(fn, *args):
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"lattice kernel launch failed: CUDA error {err}")
-
-
-def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
 
 
 def stencil_matvec(K: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,33 @@
-"""Solid element matrices and loads, evaluated once at setup in float64.
+"""Solid element operators: setup-time matrices and loads, and the plain
+PyTorch twins of the element-batch kernels.
 
-Counterpart of the subset of fourc_tpu/ops/solid.py that the lattice slices
-need at setup: the lumped and consistent mass, the linear-kinematics
-element stiffness (closed-form B^T D B, where the reference takes jvps of
-its element residual) and the surface traction force, as numpy on the host;
-and, for meshes whose elements all differ (general geometry), the
-per-element lumped mass and the diagonal and absolute row sums of the
-element stiffness as torch, chunk by chunk on the caller's device (the
-(E, 24, 24) matrices of a 1M-dof mesh never exist at once).  The hot path
-never calls them.
+Counterpart of the subset of fourc_tpu/ops/solid.py that the ported slices
+need.  At setup, in float64: the lumped and consistent mass, the
+linear-kinematics element stiffness (closed-form B^T D B, where the
+reference takes jvps of its element residual) and the surface traction
+force, as numpy on the host; and, for meshes whose elements all differ
+(general geometry), the per-element lumped mass and the linear-elastic
+element stiffness (whole, or only its diagonal and absolute row sums) as
+torch, chunk by chunk on the caller's device (the (E, 24, 24) matrices of a
+1M-dof mesh never exist at once on the device).
+
+On the hot path of a mesh of general topology: ``hex8_force_ref`` and
+``hex8_tangent_ref``, the twins of the CUDA kernels of
+ops/solid_kernels.py (the reference's ``_internal_force_einsum`` for hex8,
+nonlinear kinematics, Neo-Hooke or SVK, and its hand-propagated
+derivative), on element batches in the kernels' layout: (24, E) arrays, row
+a*3+i = component i of local node a, one column per element.  They run on
+CPU tensors only; a CUDA tensor goes to the kernels.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from fourc_tpu_torch.core.cells import CellType
+from fourc_tpu_torch.core.cells import CellType, get_cell
 from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import lattice as _lat
 
@@ -63,6 +74,38 @@ def surface_traction_force(Xf, traction, face_cell: CellType):
 ELEMENT_CHUNK = 16384  # elements per chunk of the per-element torch setup
 
 
+@functools.cache
+def hex8_tables(device, dtype):
+    """The hex8 reference gradients dN (8, 8, 3), Gauss weights w (8,) and
+    shape functions N (8, 8) at the Gauss points, as tensors."""
+    cell = get_cell("hex8")
+    return tuple(torch.as_tensor(np.asarray(t), dtype=dtype,
+                                 device=device).contiguous()
+                 for t in (cell.dN, cell.gauss_weights, cell.N))
+
+
+def hex8_force_ref(X24, u24, lam, mu, model="neohooke", mcoef=0.0,
+                   stiff=True):
+    """Total-Lagrangian internal force of a hex8 element batch (when
+    ``stiff``) plus ``mcoef * sum_g wdet_g N N^T u`` (consistent mass, when
+    mcoef != 0): X24, u24 (24, E) -> (24, E)."""
+    E = X24.shape[1]
+    fe = _lat.force_gen_elements(
+        X24.reshape(8, 3, E), u24.reshape(8, 3, E),
+        *hex8_tables(X24.device, X24.dtype), lam, mu, model, mcoef, stiff)
+    return fe.reshape(24, E)
+
+
+def hex8_tangent_ref(X24, u24, v24, lam, mu, model="neohooke", mcoef=0.0):
+    """Directional derivative of hex8_force_ref along v24, plus
+    ``mcoef * sum_g wdet_g N N^T v``: (24, E) -> (24, E)."""
+    E = X24.shape[1]
+    fe = _lat.jvp_gen_elements(
+        X24.reshape(8, 3, E), u24.reshape(8, 3, E), v24.reshape(8, 3, E),
+        *hex8_tables(X24.device, X24.dtype), lam, mu, model, mcoef)
+    return fe.reshape(24, E)
+
+
 def _chunks(Xe, cell: CellType, chunk):
     """Per chunk of elements: (slice, G (e, g, a, 3), wdet (e, g)), float64
     on Xe's device.  Xe (E, nen, 3) is a float64 tensor."""
@@ -95,19 +138,27 @@ def lattice_lumped_mass(lat_coords, nshape, cell: CellType, rho: float):
     return _lat.assemble_elements(ml[:, :, None].expand(-1, -1, 3), nshape)
 
 
-def element_stiffness_rows(Xe, cell: CellType, lam: float, mu: float,
-                           chunk=ELEMENT_CHUNK):
-    """Diagonal and absolute row sums (two (E, nen*3) tensors) of the
-    linear-elastic element stiffness of ``element_stiffness``, for a float64
-    tensor of element coordinates Xe (E, nen, 3)."""
-    E, nen = Xe.shape[:2]
-    diag, rowabs = Xe.new_empty((E, 3 * nen)), Xe.new_empty((E, 3 * nen))
+def element_stiffness_chunks(Xe, cell: CellType, lam: float, mu: float,
+                             chunk=ELEMENT_CHUNK):
+    """Per chunk of elements: (slice, K (e, nen*3, nen*3)), the
+    linear-elastic element stiffness of ``element_stiffness`` for a float64
+    tensor of element coordinates Xe (E, nen, 3), on Xe's device."""
+    nen = Xe.shape[1]
     eye = torch.eye(3, dtype=Xe.dtype, device=Xe.device)
     for sl, G, wdet in _chunks(Xe, cell, chunk):
         K = lam * torch.einsum("eg,egai,egbk->eaibk", wdet, G, G)
         K += mu * torch.einsum("eg,egaj,egbj,ik->eaibk", wdet, G, G, eye)
         K += mu * torch.einsum("eg,egak,egbi->eaibk", wdet, G, G)
-        K = K.reshape(-1, 3 * nen, 3 * nen)
+        yield sl, K.reshape(-1, 3 * nen, 3 * nen)
+
+
+def element_stiffness_rows(Xe, cell: CellType, lam: float, mu: float,
+                           chunk=ELEMENT_CHUNK):
+    """Diagonal and absolute row sums (two (E, nen*3) tensors) of the
+    element stiffness of ``element_stiffness_chunks``."""
+    E, nen = Xe.shape[:2]
+    diag, rowabs = Xe.new_empty((E, 3 * nen)), Xe.new_empty((E, 3 * nen))
+    for sl, K in element_stiffness_chunks(Xe, cell, lam, mu, chunk):
         diag[sl] = torch.diagonal(K, dim1=1, dim2=2)
         rowabs[sl] = K.abs().sum(dim=2)
     return diag, rowabs

@@ -1,22 +1,33 @@
-"""Structural field on a hex8 lattice: forces, mass, gen-alpha step.
+"""Structural field of one hex8 block: forces, mass, gen-alpha step.
 
-Counterpart of the subset of fourc_tpu/physics/solid.py that the lattice
-problems run: one hex8 block with lattice topology, a Neo-Hooke or SVK law,
-consistent mass, Dirichlet and surface-traction conditions, gen-alpha in
-time with Newton-Krylov (CG + geometric multigrid).  On a uniform lattice
-the operators are collapsed stencils (kernels B1-B3); on general geometry
-(lattice topology, arbitrary node positions, e.g. a jittered box) the field
-keeps its node coordinates as a lattice and the general-geometry kernels
-(B4, B5) compute every element's Jacobians.  The field's operators
-work on the padded lattice layout of ops/lattice.py and run the CUDA
-kernels of ops/lattice_kernels.py on a CUDA device (their twins on the CPU).
-State dicts from ``init_state``/``compute_initial_state`` hold flat dof
-vectors, as in the reference; the step turns them into lattices
-(physics/solid_lattice.py).
+Counterpart of the subset of fourc_tpu/physics/solid.py that the ported
+problems run: one hex8 block, a Neo-Hooke or SVK law, consistent mass,
+Dirichlet and surface-traction conditions, gen-alpha in time with
+Newton-Krylov (CG + multigrid).  Three kinds of mesh, found from the mesh
+itself:
+
+- a uniform lattice: the operators are collapsed stencils (kernels B1-B3);
+- general geometry on lattice topology (arbitrary node positions, e.g. a
+  jittered box): the field keeps its node coordinates as a lattice and the
+  general-geometry kernels (B4, B5) compute every element's Jacobians.
+  Both work on the padded lattice layout of ops/lattice.py, with the
+  geometric multigrid of linalg/gmg.py;
+- general topology (no lattice in the connectivity, e.g. any mesh read
+  from a file): flat dof vectors, gathered into element batches, the
+  element-batch kernels (B6, B7) and the dof map's deterministic assembly
+  (core/mesh.py), with the smoothed-aggregation AMG of linalg/amg.py.
+
+The kernels run on a CUDA device, their twins on the CPU.  State dicts from
+``init_state``/``compute_initial_state`` hold flat dof vectors, as in the
+reference; on a lattice the step turns them into lattices
+(physics/solid_lattice.py), on general topology the field's layout
+functions are the identity.
 """
 
 from __future__ import annotations
 
+import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -34,6 +45,7 @@ from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import lattice as _lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
 from fourc_tpu_torch.ops import solid as ops
+from fourc_tpu_torch.ops import solid_kernels as sk
 from fourc_tpu_torch.physics.newton import NewtonParams
 
 
@@ -62,9 +74,10 @@ class GenAlphaParams:
 
 @dataclass
 class SolidParams:
-    """Reference defaults.  The lattice slice runs kinem "nonlinear",
-    tech "none", dyntype "genalpha", precond "gmg", consistent mass and no
-    Rayleigh damping; SolidField and make_step refuse anything else."""
+    """Reference defaults.  The ported slices run kinem "nonlinear", tech
+    "none", dyntype "genalpha", precond "gmg" (or "amg" on general
+    topology), consistent mass and no Rayleigh damping; SolidField and
+    make_step refuse anything else."""
 
     kinem: str = "nonlinear"
     tech: str = "none"
@@ -80,8 +93,9 @@ class SolidParams:
 
 
 class SolidField:
-    """Discretization + material + conditions -> lattice operators, on the
-    CUDA card unless ``device="cpu"`` is asked for."""
+    """Discretization + material + conditions -> operators in the field's
+    layout (padded lattice, or flat dof vectors on general topology), on
+    the CUDA card unless ``device="cpu"`` is asked for."""
 
     def __init__(self, disc: Discretization, materials: dict,
                  params: SolidParams, dirichlet=(), neumann=(),
@@ -105,7 +119,7 @@ class SolidField:
                 raise ValueError(f"block {key} mixes materials")
             self.block_mat[key] = materials[mid]
         self._check_supported()
-        key = next(iter(self.block_mat))
+        self.key = key = next(iter(self.block_mat))
         mat = self.block_mat[key]
         self.cell = get_cell("hex8")
         self.model = _lat.material_model(mat)
@@ -115,9 +129,10 @@ class SolidField:
         self.density = float(mat.density or 0.0)
         self.N = self._t(self.cell.N)
         # uniform lattice: collapsed stencils; else general geometry on the
-        # lattice topology of the dof map: the coordinate lattice x
+        # lattice topology of the dof map: the coordinate lattice x; else
+        # general topology: element batches X24 through the dof map
         self.lattice = _lat.detect_lattice(disc)
-        self.x = None
+        self.x = self.X24 = None
         if self.lattice is not None:
             G, wdet = _lat.uniform_geometry(self.cell, self.lattice)
             self.G, self.wdet = self._t(G), self._t(wdet)
@@ -125,15 +140,17 @@ class SolidField:
             self.mass_stencil = self._t(self._mass_stencil())
         else:
             self.lattice = _lat.general_lattice(self.dofmap)
-            if self.lattice is None:
-                raise NotImplementedError(
-                    "only a single-block hex8 lattice is ported")
-            self.x = _lat.coord_lattice(disc.coords, self.lattice, dtype,
-                                        self.device)
-            self.dN = self._t(self.cell.dN)
-            self.w = self._t(self.cell.gauss_weights)
+            if self.lattice is not None:
+                self.x = _lat.coord_lattice(disc.coords, self.lattice, dtype,
+                                            self.device)
+                self.dN = self._t(self.cell.dN)
+                self.w = self._t(self.cell.gauss_weights)
+            else:
+                Xe = disc.coords[disc.blocks[key].conn]  # (E, 8, 3)
+                self.X24 = self._t(Xe.reshape(-1, 24).T)
         free = torch.as_tensor(self.dbc.free_mask, dtype=torch.float64)
         self.free = self.to_lattice(free.to(self.device)) > 0
+        self._amg_cache = {}
         self._neumann_data = []
         for nb in self.neumann:
             if nb.kind != "traction":
@@ -150,7 +167,7 @@ class SolidField:
                 or p.mass != "consistent" or p.rayleigh_alpha
                 or p.rayleigh_beta):
             raise NotImplementedError(
-                "the lattice slice supports one hex8 block, kinem "
+                "the ported slices support one hex8 block, kinem "
                 "'nonlinear', tech 'none', consistent mass, no Rayleigh "
                 "damping")
 
@@ -158,17 +175,28 @@ class SolidField:
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
                                device=self.device).contiguous()
 
-    # -- layout -----------------------------------------------------------
+    # -- layout: padded lattice, or flat on general topology ---------------
 
     def to_lattice(self, v):
-        return _lat.to_lattice(v, self.lattice)
+        return v if self.lattice is None else _lat.to_lattice(v, self.lattice)
 
     def from_lattice(self, x):
-        return _lat.from_lattice(x, self.lattice)
+        return x if self.lattice is None else _lat.from_lattice(x,
+                                                                self.lattice)
 
-    # -- operators (padded lattice layout) --------------------------------
+    # -- operators (in the field's layout) ---------------------------------
+
+    def _elements(self, u):
+        """General topology: flat dof vector -> element batch (24, E)."""
+        return self.dofmap.gather(u, self.key)
+
+    def _assemble(self, fe):
+        return self.dofmap.scatter_add({self.key: fe})
 
     def internal_force(self, u):
+        if self.X24 is not None:
+            return self._assemble(sk.hex8_force(
+                self.X24, self._elements(u), self.lam, self.mu, self.model))
         if self.x is not None:
             return lk.neo_force_gen(self.x, u, self.dN, self.w, self.N,
                                     self.lam, self.mu, self.model)
@@ -177,6 +205,10 @@ class SolidField:
 
     def tangent(self, u, v, mcoef=0.0):
         """K(u) v + mcoef * sum_g wdet N N^T v (mcoef includes rho)."""
+        if self.X24 is not None:
+            return self._assemble(sk.hex8_tangent(
+                self.X24, self._elements(u), self._elements(v), self.lam,
+                self.mu, self.model, mcoef))
         if self.x is not None:
             return lk.neo_tangent_gen(self.x, u, v, self.dN, self.w, self.N,
                                       self.lam, self.mu, self.model, mcoef)
@@ -184,6 +216,10 @@ class SolidField:
                               self.mu, self.model, mcoef)
 
     def mass_matvec(self, v):
+        if self.X24 is not None:  # B6 in its mass-only mode
+            return self._assemble(sk.hex8_force(
+                self.X24, self._elements(v), 0.0, 0.0, "svk",
+                mcoef=self.density, stiff=False))
         if self.x is not None:  # B4 in its mass-only mode
             return lk.neo_force_gen(self.x, v, self.dN, self.w, self.N, 0.0,
                                     0.0, "svk", mcoef=self.density,
@@ -208,7 +244,18 @@ class SolidField:
                              minlength=self.ndof)
         return self.to_lattice(self._t(f))
 
+    def _element_coords(self):
+        """General topology: float64 element coordinates (E, 8, 3) on the
+        field's device."""
+        conn = self.disc.blocks[self.key].conn
+        return torch.as_tensor(self.disc.coords[conn], device=self.device)
+
     def lumped_mass(self):
+        if self.X24 is not None:
+            ml = ops.element_lumped_mass(self._element_coords(), self.cell,
+                                         self.density)  # (E, 8)
+            return self._assemble(ml.T.repeat_interleave(3, dim=0)).to(
+                self.dtype)
         nshape = self.lattice.nshape
         if self.x is not None:  # every element's own geometry
             X = torch.as_tensor(self.disc.coords, device=self.device)
@@ -228,6 +275,64 @@ class SolidField:
         cols = ops.consistent_mass_matvec(np.repeat(self.Xe1, 24, axis=0), ve,
                                           self.cell, self.density)
         return _lat.collapse_stencil(cols.reshape(24, 24).T)
+
+    def assemble_linear_operator(self, mass_shift=0.0, timings=None):
+        """General topology: the linear-elastic stiffness of the mesh plus
+        ``mass_shift`` times the lumped mass, assembled on the host as a
+        scipy CSR matrix in float64, with unit rows and columns on the
+        constrained dofs.  The element matrices come chunk by chunk from
+        the field's device.  ``timings`` (a dict) receives the seconds of
+        the two stages."""
+        import scipy.sparse as sp
+
+        t0 = time.perf_counter()
+        Xe = self._element_coords()
+        E = Xe.shape[0]
+        vals = np.empty((E, 24, 24))
+        mdiag = None
+        if mass_shift:
+            ml = ops.element_lumped_mass(Xe, self.cell, self.density)
+            mdiag = mass_shift * ml.repeat_interleave(3, dim=1)  # (E, 24)
+        for sl, K in ops.element_stiffness_chunks(Xe, self.cell, self.lam,
+                                                  self.mu):
+            if mdiag is not None:
+                K = K + torch.diag_embed(mdiag[sl])
+            vals[sl] = K.cpu().numpy()
+        t1 = time.perf_counter()
+        conn = self.disc.blocks[self.key].conn
+        edof = (conn[:, :, None] * 3 + np.arange(3, dtype=np.int32)).reshape(
+            E, 24)
+        A0 = sp.coo_matrix(
+            (vals.reshape(-1), (np.repeat(edof, 24, axis=1).reshape(-1),
+                                np.tile(edof, (1, 24)).reshape(-1))),
+            shape=(self.ndof, self.ndof)).tocsr()  # duplicates summed
+        free = self.dbc.free_mask
+        D = sp.diags(free.astype(np.float64))
+        A0 = (D @ A0 @ D + sp.diags((~free).astype(np.float64))).tocsr()
+        if timings is not None:
+            timings["element_stiffness"] = t1 - t0
+            timings["coo_to_csr"] = time.perf_counter() - t1
+        return A0
+
+    def _build_amg(self, mass_shift=0.0):
+        """Smoothed-aggregation AMG on the assembled linear-elastic
+        rediscretisation: state-independent, built once per mass shift and
+        reused across Newton and time steps."""
+        from fourc_tpu_torch.linalg.amg import SmoothedAggregationAMG
+
+        if self.X24 is None:
+            raise NotImplementedError(
+                "precond 'amg' is ported for meshes of general topology; a "
+                "lattice mesh takes 'gmg'")
+        shift = round(float(mass_shift), 10)
+        if shift not in self._amg_cache:
+            timings = {}
+            A0 = self.assemble_linear_operator(mass_shift, timings)
+            M = SmoothedAggregationAMG(A0, self.ndpn, device=self.device,
+                                       dtype=self.dtype)
+            M.timings = {**timings, **M.timings}
+            self._amg_cache[shift] = M
+        return self._amg_cache[shift]
 
 
 def init_state(f: SolidField):
@@ -279,23 +384,39 @@ def _newmark_updates(dt, d_new, d_n, v_n, a_n, beta, gamma):
 
 def make_step(f: SolidField, dt: float | None = None):
     """Build ``step(state) -> (state, stats)`` for the configured
-    integrator (gen-alpha with GMG on this slice)."""
+    integrator (gen-alpha with a multigrid preconditioner on the ported
+    slices)."""
     dt = float(dt if dt is not None else f.params.dt)
     if f.params.dyntype != "genalpha":
         raise NotImplementedError(
             f"DYNAMICTYPE {f.params.dyntype!r} is not ported (genalpha is)")
-    if f.params.precond != "gmg":
+    if f.params.precond not in ("gmg", "amg"):
         raise NotImplementedError(
-            f"precond {f.params.precond!r} is not ported (gmg is)")
+            f"precond {f.params.precond!r} is not ported (gmg and amg are)")
     return _make_genalpha_step(f, dt)
 
 
-def _make_genalpha_step(f: SolidField, dt: float):
+def _static_precond(f: SolidField, mass_shift: float = 0.0):
+    """The state-independent preconditioner, built once per step function:
+    GMG on a lattice, SA-AMG on general topology."""
+    if f.params.precond == "amg":
+        return f._build_amg(mass_shift)
+    if f.lattice is None:
+        # general topology: fall back to SA-AMG, the multigrid that works
+        # on any mesh, not to a one-level method
+        warnings.warn("gmg preconditioner needs a structured single-block "
+                      "mesh; falling back to SA-AMG")
+        return f._build_amg(mass_shift)
     from fourc_tpu_torch.linalg import gmg
+
+    return gmg.build_for_solid(f, mass_shift=mass_shift, device=f.device)
+
+
+def _make_genalpha_step(f: SolidField, dt: float):
     from fourc_tpu_torch.physics import solid_lattice
 
     ga = f.params.genalpha
-    M_gmg = gmg.build_for_solid(
-        f, mass_shift=(1 - ga.alpha_m) / (ga.beta * dt * dt),
-        device=f.device)
-    return solid_lattice.make_lattice_genalpha_step(f, dt, M_gmg)
+    M = _static_precond(f, mass_shift=(1 - ga.alpha_m) / (ga.beta * dt * dt))
+    step = solid_lattice.make_lattice_genalpha_step(f, dt, M)
+    step.precond = M  # for reports: the hierarchy and its setup times
+    return step

@@ -1,11 +1,14 @@
-"""Gen-alpha step with the whole Newton-Krylov loop in the lattice layout.
+"""Gen-alpha step with the whole Newton-Krylov loop in the field's layout.
 
-Counterpart of fourc_tpu/physics/solid_lattice.py, for both kinds of field
-spec: a uniform lattice (kernels B1-B3) and general geometry on lattice
-topology (B4, B5); the step only calls the field's operators.  State
-vectors, residuals, Krylov vectors and the GMG hierarchy all stay in the
-padded lattice layout (ops/lattice.py); the flat dof state is converted once,
-on the first step.
+Counterpart of fourc_tpu/physics/solid_lattice.py and of the flat
+``_make_genalpha_step`` of fourc_tpu/physics/solid.py (without contact,
+ties, Rayleigh damping and history), for every kind of field: a uniform
+lattice (kernels B1-B3), general geometry on lattice topology (B4, B5) and
+general topology (B6, B7); the step only calls the field's operators.  On a
+lattice, state vectors, residuals, Krylov vectors and the GMG hierarchy all
+stay in the padded lattice layout (ops/lattice.py); the flat dof state is
+converted once, on the first step.  On general topology the field's layout
+functions are the identity and everything stays flat.
 
 The Newton operator is the fused tangent of the residual,
 ``(1 - af) * (K(u) v + mcoef * M v)`` with
@@ -26,7 +29,8 @@ STATE_FIELDS = ("d", "v", "a", "fint", "fext")  # dof vectors of a state
 
 
 def to_lattice_state(f, state):
-    """Flat dof state -> lattice state (no-op if already a lattice)."""
+    """Flat dof state -> state in the field's layout (no-op if it is a
+    lattice already, or if the field is flat)."""
     if state["d"].dim() != 1:
         return dict(state)
     new = dict(state)
@@ -45,7 +49,7 @@ def from_lattice_state(f, state):
     return new
 
 
-def make_lattice_genalpha_step(f, dt: float, M_gmg):
+def make_lattice_genalpha_step(f, dt: float, precond):
     ga = f.params.genalpha
     am, af, beta, gamma = ga.alpha_m, ga.alpha_f, ga.beta, ga.gamma
     mcoef = f.density * (1 - am) / ((1 - af) * beta * dt * dt)
@@ -72,8 +76,8 @@ def make_lattice_genalpha_step(f, dt: float, M_gmg):
 
         u0 = torch.where(f.free, _predict(f.params.predictor, dt, d_n, v_n,
                                           a_n), gw)
-        u, stats = newton_solve(residual, u0, f.free, M_gmg, f.params.newton,
-                                matvec_fn)
+        u, stats = newton_solve(residual, u0, f.free, precond,
+                                f.params.newton, matvec_fn)
         v1, a1 = _newmark_updates(dt, u, d_n, v_n, a_n, beta, gamma)
         new_state = dict(state)
         new_state.update(d=u, v=v1, a=a1, t=t1, step=state["step"] + 1,

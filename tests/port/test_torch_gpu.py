@@ -19,6 +19,8 @@ from fourc_tpu_torch.core import cells
 from fourc_tpu_torch.materials.elastic import lame
 from fourc_tpu_torch.ops import lattice as lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
+from fourc_tpu_torch.ops import solid as sops
+from fourc_tpu_torch.ops import solid_kernels as sk
 
 pytestmark = pytest.mark.gpu
 
@@ -144,6 +146,66 @@ def test_tangent_gen_kernel_matches_twin(cuda, dtype, shape, mode):
     assert lk.launches["tangent_gen"] == 1
     want = lat.neo_jvp_gen_ref(x, u, v, *tab, lam, mu, "neohooke", mcoef)
     assert _rel(got, want) <= TOL[dtype]
+
+
+def _batches(E, dtype, device, seed):
+    """Element batches (24, E) of jittered unit cubes at random offsets:
+    coordinates, a small displacement and a direction."""
+    rng = np.random.default_rng(seed)
+    base = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                     [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], float)
+    Xe = (base[None] * rng.uniform(0.2, 0.5, size=(E, 1, 3))
+          + rng.uniform(-0.02, 0.02, size=(E, 8, 3))
+          + rng.uniform(0, 3, size=(E, 1, 3)))
+
+    def t(x):
+        return torch.as_tensor(x.reshape(E, 24).T.copy(), dtype=dtype,
+                               device=device)
+
+    return (t(Xe), t(rng.normal(size=(E, 8, 3)) * 5e-3),
+            t(rng.normal(size=(E, 8, 3))))
+
+
+# E = 1 and sizes off the block size of 128 exercise the masked tail
+BATCHES = [1, 130, 1000]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("E", BATCHES)
+@pytest.mark.parametrize("mode", list(GEN_FORCE))
+def test_solid_force_kernel_matches_twin(cuda, dtype, E, mode):
+    X, u, _ = _batches(E, dtype, cuda, 10)
+    model, mcoef, stiff = GEN_FORCE[mode]
+    lam, mu = lame(500.0, 0.3)
+    sk.reset_launches()
+    got = sk.hex8_force(X, u, lam, mu, model, mcoef, stiff)
+    assert sk.launches == {"force": 1, "tangent": 0}
+    want = sops.hex8_force_ref(X, u, lam, mu, model, mcoef, stiff)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("E", BATCHES)
+@pytest.mark.parametrize("model, mcoef", [("neohooke", 0.0),
+                                          ("neohooke", 137.5), ("svk", 0.0)])
+def test_solid_tangent_kernel_matches_twin(cuda, dtype, E, model, mcoef):
+    X, u, v = _batches(E, dtype, cuda, 11)
+    lam, mu = lame(500.0, 0.3)
+    sk.reset_launches()
+    got = sk.hex8_tangent(X, u, v, lam, mu, model, mcoef)
+    assert sk.launches == {"force": 0, "tangent": 1}
+    want = sops.hex8_tangent_ref(X, u, v, lam, mu, model, mcoef)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+def test_solid_kernel_rejects_bad_batches(cuda):
+    X, u, v = _batches(5, torch.float64, cuda, 12)
+    with pytest.raises(ValueError):
+        sk.hex8_force(X, u.cpu(), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        sk.hex8_tangent(X, u, v.to(torch.float32), 1.0, 1.0)
+    with pytest.raises(ValueError):
+        sk.hex8_force(X.T.contiguous().T, u, 1.0, 1.0)  # not contiguous
 
 
 def test_kernel_rejects_mixed_devices(cuda):

@@ -69,21 +69,33 @@ def test_box_matches_reference(n, hi):
 @pytest.mark.parametrize("ids", ["canonical", "permuted"])
 def test_dofmap_rejects_unstructured(ids):
     """Without generator provenance the canonical connectivity is still a
-    lattice (detected from conn alone); permuted node ids are not."""
+    lattice (detected from conn alone); permuted node ids give a block of
+    general topology with a node-incidence table (the name dates from when
+    such a mesh was refused)."""
     disc = gridgen.box(2, 3, 2)
     disc.structured_shape = None
     if ids == "canonical":
         blk = disc.dofmap(3).blocks["hex8"]
         assert blk.structured["shape"] == (2, 3, 2)
         assert blk.structured["pshape"] == (3, 4, 3)
+        assert blk.inc_clip is None and blk.inc_w is None
         return
     perm = np.random.default_rng(0).permutation(disc.n_nodes)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(disc.n_nodes)
     disc.coords = disc.coords[perm]
     disc.blocks["hex8"].conn = inv[disc.blocks["hex8"].conn].astype(np.int32)
-    with pytest.raises(NotImplementedError):
-        disc.dofmap(3)
+    blk = disc.dofmap(3).blocks["hex8"]
+    assert blk.structured is None
+    assert blk.inc_clip.shape == blk.inc_w.shape == (disc.n_nodes, 8)
+    # every node's real slots name the element corners that are this node
+    flat = blk.conn.reshape(-1)
+    real = blk.inc_w > 0
+    assert int(real.sum()) == flat.size
+    node_of_slot = np.broadcast_to(np.arange(disc.n_nodes)[:, None],
+                                   real.shape)
+    np.testing.assert_array_equal(flat[blk.inc_clip[real]],
+                                  node_of_slot[real])
 
 
 @pytest.mark.parametrize("expr", [

@@ -25,6 +25,7 @@ from fourc_tpu_torch import convert
 from fourc_tpu_torch.core import gridgen
 from fourc_tpu_torch.core.cells import get_cell
 from fourc_tpu_torch.materials.elastic import lame
+from fourc_tpu_torch.ops import cuda_build
 from fourc_tpu_torch.ops import lattice as lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
 
@@ -215,13 +216,15 @@ def test_cpu_wrappers_use_twins_and_count_nothing(box):
 
 
 def test_kernel_sources_present_and_build_needs_nvcc(monkeypatch):
-    for name in lk.SOURCES:
-        assert (lk.CSRC / name).is_file()
-    assert lk.library_path().name.startswith("liblattice_")
+    for name in (*cuda_build.SOURCES, cuda_build.HEADER):
+        assert (cuda_build.CSRC / name).is_file()
+    assert lk.SOURCE in cuda_build.SOURCES
+    assert cuda_build.library_path(lk.SOURCE).name.startswith(
+        "liblattice_kernels_")
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     with pytest.raises(RuntimeError, match="nvcc"):
-        lk.find_nvcc()
+        cuda_build.find_nvcc()
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype"])

@@ -2,13 +2,14 @@
 
 Usage, from the repository root on a machine with a CUDA device:
 
-    python tools/profile_port_step.py [n] [steps] [flagship|jittered]
+    python tools/profile_port_step.py [n] [steps] [flagship|jittered|permuted]
 
-Builds the flagship problem of chip_smoke.py, or its jittered-box variant
-(default n=72, float32, flagship), runs two warm-up steps, then traces ``steps`` steps (default 2) with
-torch.profiler.  Prints the device-time table by kernel, the device busy
-share (summed kernel time over the host wall time of the traced steps) and
-the host time per CG iteration.
+Builds the flagship problem of chip_smoke.py on one of its meshes (default
+n=72, float32, flagship; the permuted box's full size is n=56), runs two
+warm-up steps, then traces ``steps`` steps (default 2) with torch.profiler.
+Prints the device-time table by kernel, the device busy share (summed
+kernel time over the host wall time of the traced steps) and the host time
+per CG iteration.
 """
 
 import os
@@ -33,12 +34,12 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 72
     n_steps = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     mesh = sys.argv[3] if len(sys.argv) > 3 else "flagship"
-    if mesh not in ("flagship", "jittered"):
-        raise ValueError(f"mesh must be flagship or jittered, not {mesh!r}")
-    f = cs.build_problem(n, "cuda", torch.float32,
-                         jittered=mesh == "jittered")
+    if mesh not in cs.FULL_N:
+        raise ValueError(f"mesh must be one of {list(cs.FULL_N)}, "
+                         f"not {mesh!r}")
+    f = cs.build_problem(n, "cuda", torch.float32, mesh)
     state = ps.compute_initial_state(f, ps.init_state(f))
-    step = ps.make_step(f, dt=0.02)
+    step = cs.make_step(f, mesh)
     for _ in range(2):
         state, _ = step(state)
     torch.cuda.synchronize()
@@ -57,10 +58,11 @@ def main():
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=25))
+                                    row_limit=25, max_name_column_width=90))
     launches = sum(e.count for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"{mesh} n={n}: {n_steps} steps, {newton} Newton, {cg} CG iterations, "
+    print(f"{mesh} n={n}: {n_steps} steps, {newton} Newton, {cg} CG "
+          f"iterations, "
           f"wall {1e3 * wall:.1f} ms (profiler on), device kernel time "
           f"{device_us / 1e3:.1f} ms, busy share "
           f"{device_us / 1e6 / wall:.3f}, {launches} device kernels, "
