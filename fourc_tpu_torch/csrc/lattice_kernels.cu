@@ -14,15 +14,30 @@
 // B5 tangent_gen  replaces fourc_tpu/ops/lattice_pallas.py:331 _jvp_kernel_gen
 //
 // What bounds them on the H100 and what the design does about it:
-// - B3 is a 24x24 block stencil: 576 FMAs per node (the assembled operator
-//   needs 243, 27 neighbour blocks of 3x3, but the kernel walks the 8
-//   elements' blocks, which overlap) against 27*3 loads and 3 stores.
-//   One thread per OUTPUT node gathers its <= 8 real elements,
-//   so there are no atomics and the sum order is fixed (deterministic).
-//   The stencil K (576 values) sits in shared memory, loaded from a device
-//   pointer, because each GMG level has its own K.  The neighbour loads
-//   repeat across the 8 elements and rely on L1/L2; at ~1M dofs it should
-//   be bound by the load path, not by FMAs.
+// - B3 applies one element stencil K (8,3,8,3), read from a device pointer
+//   because each GMG level has its own.  Walking the 8 elements of each
+//   node (one thread per node) costs 64 node-block pairs: 576 FMAs, each
+//   with its K coefficient from shared memory, and 192 loads of v of which
+//   81 are distinct.  At n=72 that is 7.6 M warp-wide shared loads, about
+//   57 k per SM, which at one per clock is the 32-35 us that version took
+//   on the H100 (0.0030 ms byte bound): the shared-load pipe bound it.
+//   Now a block with interior nodes first sums K into the assembled
+//   27-point stencil S (27 blocks of 3x3, stencil_prologue).  A node with
+//   all 8 elements (an interior node) is y_p = sum_d S[d] v[p+d], 243 FMAs;
+//   one thread takes 4 consecutive interior nodes along y, reads each block
+//   of S once as 3 vector rows and feeds each of the 6 rows of v it loads
+//   per (dx, dz) column to the nodes it touches: about 20 shared loads and
+//   40 loads of v per node.  Boundary nodes (8% of the real nodes at n=72)
+//   keep the 8-element loop; they come first in the grid, ordered so that
+//   a warp shares one set of elements; the interior threads start at a
+//   whole block, so no warp runs both paths.  The prologue has one
+//   barrier: on the coarse GMG levels, where one wave of blocks runs, the
+//   longest block is the kernel.  One launch, no atomics, a fixed sum order
+//   per node.  14.1 us on the H100 at n=72 (float32, a CUDA graph of
+//   calls), against 32.5 us for the element walk in the same run, and
+//   faster at n=36, 18 and 9 too (tools/b3_variants.py): now the load pipe
+//   (misaligned rows of v, two wavefronts each), the boundary shell's
+//   strided columns and a launch floor of about 4 us share the time.
 // - B1/B2 do ~2-4k flops per element (8 Gauss points of 3x3 algebra),
 //   compute bound in registers.  One thread per REAL element computes the
 //   24-value element vector and writes it to a scratch buffer stored
@@ -59,7 +74,12 @@
 
 namespace fourc {
 
-constexpr int kStencilThreads = 256;
+// B3: 128 threads, at least 5 blocks per SM (at most 102 registers; the
+// compiler's own choice, 254, leaves 2 blocks per SM and is slower), 4
+// interior nodes per thread (tools/b3_variants.py times the others)
+constexpr int kStencilThreads = 128;
+constexpr int kStencilMinBlocks = 5;
+constexpr int kStencilRows = 4;
 constexpr int kGatherThreads = 256;
 
 struct Dims {
@@ -80,18 +100,48 @@ struct Dims {
 // B3: y = A v for a uniform (8,3,8,3) node-block stencil K[a,i,b,j]
 // ---------------------------------------------------------------------------
 
+// The assembled stencil S: S[d] couples a node to its neighbour at offset
+// (dx, dy, dz), d = (dx+1)*9 + (dy+1)*3 + (dz+1), a 3x3 block stored with
+// row r at S + d*kSBlock + 4*r (rows padded to 4 so that they load as one
+// vector).
+constexpr int kSBlock = 12;
+
+// hex8 local node at lattice offset (x, y, z) in {0,1}^3 (inverse of ox/oy/oz)
+__device__ __forceinline__ int hex8_node(int x, int y, int z) {
+  return 4 * z + (y ? 3 - x : x);
+}
+
+// The block's prologue, one barrier.  A block of shell nodes loads K into
+// shared memory (the 8-element loop reads it); a block of interior nodes
+// sums K, read from global memory, into S[d][i][j] = sum over the pairs
+// (a, b) with o(b) - o(a) = d of K[a,i,b,j] (8, 4, 2 or 1 terms, a in order).
 template <typename T>
-__global__ void __launch_bounds__(kStencilThreads)
-stencil_kernel(const T* __restrict__ Kg, const T* __restrict__ v,
-               T* __restrict__ out, Dims d) {
-  __shared__ T K[576];
-  for (int t = threadIdx.x; t < 576; t += blockDim.x) K[t] = Kg[t];
+__device__ __forceinline__ void stencil_prologue(const T* __restrict__ Kg, T* K,
+                                                 T* S, bool shell) {
+  if (shell)
+    for (int t = threadIdx.x; t < 576; t += blockDim.x) K[t] = Kg[t];
+  else
+    for (int t = threadIdx.x; t < 243; t += blockDim.x) {
+      const int dd = t / 9, i = (t / 3) % 3, j = t % 3;
+      const int dx = dd / 9 - 1, dy = (dd / 3) % 3 - 1, dz = dd % 3 - 1;
+      T s = T(0);
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int x = ox(a) + dx, y = oy(a) + dy, z = oz(a) + dz;
+        if ((unsigned)x > 1u || (unsigned)y > 1u || (unsigned)z > 1u) continue;
+        s += __ldg(Kg + (a * 3 + i) * 24 + hex8_node(x, y, z) * 3 + j);
+      }
+      S[dd * kSBlock + 4 * i + j] = s;
+    }
   __syncthreads();
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= d.n) return;
-  const int k = (int)(p % d.Z);
-  const int j = (int)((p / d.Z) % d.Y);
-  const int i = (int)(p / ((long long)d.Y * d.Z));
+}
+
+// one padded node (i, j, k) by its <= 8 real elements: any node, needed for
+// those that miss an element (boundary nodes; ghost nodes get 0)
+template <typename T>
+__device__ __forceinline__ void stencil_node(const T* K, const T* __restrict__ v,
+                                             T* __restrict__ out, const Dims& d,
+                                             int i, int j, int k) {
   T s0 = T(0), s1 = T(0), s2 = T(0);
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
@@ -109,9 +159,155 @@ stencil_kernel(const T* __restrict__ Kg, const T* __restrict__ v,
       s2 += Kab[48] * v0 + Kab[49] * v1 + Kab[50] * v2;
     }
   }
+  const long long p = d.node(i, j, k);
   out[p] = s0;
   out[d.n + p] = s1;
   out[2 * d.n + p] = s2;
+}
+
+__device__ __forceinline__ void lds_row(const float* s, float r[3]) {
+  const float4 q = *reinterpret_cast<const float4*>(s);
+  r[0] = q.x;
+  r[1] = q.y;
+  r[2] = q.z;
+}
+__device__ __forceinline__ void lds_row(const double* s, double r[3]) {
+  const double2 q = *reinterpret_cast<const double2*>(s);
+  r[0] = q.x;
+  r[1] = q.y;
+  r[2] = s[2];
+}
+
+// R interior nodes (i, j0 + m, k), m < R, by the 27-point product; the
+// first nj of them are stored (the others may lie outside the interior and
+// their rows past the lattice read 0)
+template <typename T, int R>
+__device__ __forceinline__ void stencil_rows(const T* S, const T* __restrict__ v,
+                                             T* __restrict__ out, const Dims& d,
+                                             int i, int j0, int k, int nj) {
+  const int YZ = d.Y * d.Z;
+  const long long p0 = d.node(i, j0, k);
+  T acc[R][3];
+#pragma unroll
+  for (int m = 0; m < R; ++m) acc[m][0] = acc[m][1] = acc[m][2] = T(0);
+  // the 9 (dx, dz) columns; each reads its 3 blocks S[dx, -1..1, dz] once
+#pragma unroll
+  for (int col = 0; col < 9; ++col) {
+    const int dx = col / 3 - 1, dz = col % 3 - 1;
+    T s[3][3][3];  // [dy + 1][row][col]
+#pragma unroll
+    for (int e = 0; e < 3; ++e)
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        lds_row(S + ((dx + 1) * 9 + e * 3 + dz + 1) * kSBlock + 4 * r, s[e][r]);
+    // row r = v[:, i+dx, j0-1+r, k+dz] feeds node m with dy = r - 1 - m
+    const T* q0 = v + p0 + dx * YZ + dz - d.Z;
+#pragma unroll
+    for (int r = 0; r < R + 2; ++r) {
+      T w0 = T(0), w1 = T(0), w2 = T(0);
+      if (r < 4 || j0 - 1 + r < d.Y) {
+        const T* q = q0 + r * d.Z;
+        w0 = q[0];
+        w1 = q[d.n];
+        w2 = q[2 * d.n];
+      }
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int e = r - m;
+        if (e < 0 || e > 2) continue;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          acc[m][c] += s[e][c][0] * w0;
+          acc[m][c] += s[e][c][1] * w1;
+          acc[m][c] += s[e][c][2] * w2;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    if (m < nj) {
+      const long long p = p0 + (long long)m * d.Z;
+      out[p] = acc[m][0];
+      out[d.n + p] = acc[m][1];
+      out[2 * d.n + p] = acc[m][2];
+    }
+  }
+}
+
+// Interior nodes have all 8 elements: 2 <= i <= nx, alike in j and k.
+__host__ __device__ __forceinline__ long long interior_nodes(const Dims& d) {
+  return (long long)(d.nx - 1) * (d.ny - 1) * (d.nz - 1);
+}
+
+template <int R>
+__host__ __device__ __forceinline__ long long interior_threads(const Dims& d) {
+  return (long long)(d.nx - 1) * ((d.ny - 1 + R - 1) / R) * (d.nz - 1);
+}
+
+// The threads of the boundary shell: one per shell node, rounded up to whole
+// blocks, so that no warp runs both the shell's and the interior's path
+// (one such warp would be the kernel's critical path on the coarse levels).
+__host__ __device__ __forceinline__ long long shell_threads(const Dims& d) {
+  const long long n_bnd = d.n - interior_nodes(d);
+  return (n_bnd + kStencilThreads - 1) / kStencilThreads * kStencilThreads;
+}
+
+// Node b of the boundary shell (the padded nodes that are not interior, 2
+// deep), by planes i = 0, 1, X-2, X-1, then rows j = 0, 1, Y-2, Y-1 of the
+// other planes, then columns k = 0, 1, Z-2, Z-1 of the other rows, so that
+// the nodes of one warp have one set of elements.
+__device__ __forceinline__ void shell_node(const Dims& d, long long b, int& i,
+                                           int& j, int& k) {
+  const int ni = d.nx - 1, nj = d.ny - 1;
+  const long long plane = (long long)d.Y * d.Z, row = (long long)ni * d.Z,
+                  col = (long long)ni * nj;
+  if (b < 4 * plane) {
+    const int s = (int)(b / plane);
+    i = s < 2 ? s : d.X - 4 + s;
+    j = (int)((b % plane) / d.Z);
+    k = (int)(b % d.Z);
+  } else if ((b -= 4 * plane) < 4 * row) {
+    const int s = (int)(b / row);
+    j = s < 2 ? s : d.Y - 4 + s;
+    i = 2 + (int)((b % row) / d.Z);
+    k = (int)(b % d.Z);
+  } else {
+    b -= 4 * row;
+    const int s = (int)(b / col);
+    k = s < 2 ? s : d.Z - 4 + s;
+    i = 2 + (int)((b % col) / nj);
+    j = 2 + (int)(b % nj);
+  }
+}
+
+// The first blocks take the boundary shell, one node per thread by the
+// 8-element loop; the blocks after them take R consecutive interior nodes
+// along y at one (i, k) per thread, k fastest.
+template <typename T, int R>
+__global__ void __launch_bounds__(kStencilThreads, kStencilMinBlocks)
+stencil_kernel(const T* __restrict__ Kg, const T* __restrict__ v,
+               T* __restrict__ out, Dims d) {
+  __shared__ T K[576];
+  __shared__ __align__(16) T S[27 * kSBlock];
+  const long long t = (long long)blockIdx.x * kStencilThreads + threadIdx.x;
+  const long long n_shell = shell_threads(d);
+  const bool shell = t - threadIdx.x < n_shell;  // the same for the block
+  stencil_prologue(Kg, K, S, shell);
+  if (shell) {
+    if (t >= d.n - interior_nodes(d)) return;
+    int i, j, k;
+    shell_node(d, t, i, j, k);
+    stencil_node(K, v, out, d, i, j, k);
+    return;
+  }
+  const long long u = t - n_shell;
+  if (u >= interior_threads<R>(d)) return;
+  const int nk = d.nz - 1, jb = (d.ny - 1 + R - 1) / R;
+  const int k = 2 + (int)(u % nk);
+  const int j0 = 2 + R * (int)((u / nk) % jb);
+  const int i = 2 + (int)(u / nk / jb);
+  stencil_rows<T, R>(S, v, out, d, i, j0, k, min(R, d.ny + 1 - j0));
 }
 
 // ---------------------------------------------------------------------------
@@ -271,8 +467,10 @@ gather_kernel(const T* __restrict__ scratch, Dims d, T* __restrict__ out) {
 template <typename T>
 int stencil(const T* K, const T* v, T* out, int nx, int ny, int nz, void* stream) {
   const Dims d(nx, ny, nz);
-  stencil_kernel<T><<<blocks_for(d.n, kStencilThreads), kStencilThreads, 0,
-                      (cudaStream_t)stream>>>(K, v, out, d);
+  const long long threads = shell_threads(d) + interior_threads<kStencilRows>(d);
+  stencil_kernel<T, kStencilRows>
+      <<<blocks_for(threads, kStencilThreads), kStencilThreads, 0,
+         (cudaStream_t)stream>>>(K, v, out, d);
   return (int)cudaGetLastError();
 }
 

@@ -163,6 +163,7 @@ class SolidField:
     def _check_supported(self):
         p = self.params
         if (len(self.block_mat) != 1 or self.ndpn != 3
+                or any(b.cell != "hex8" for b in self.disc.blocks.values())
                 or p.kinem != "nonlinear" or p.tech != "none"
                 or p.mass != "consistent" or p.rayleigh_alpha
                 or p.rayleigh_beta):

@@ -58,12 +58,37 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+# No interior node at all; then boxes whose ny - 1 interior rows along y
+# fill the last of the kernel's 4-row groups with 4, 1, 2 and 3 rows.
+STENCIL_SHAPES = [(1, 1, 1), (2, 3, 1), (5, 9, 3), (5, 10, 3), (9, 7, 12),
+                  (16, 16, 16)]
+STENCIL_CASES = ([(shape, "random") for shape in STENCIL_SHAPES]
+                 + [((9, 7, 12), "mass")])
+
+
+def _mass_stencil(shape, dtype, device):
+    """The consistent-mass stencil of a SolidField on the box of _inputs."""
+    from fourc_tpu_torch.core import gridgen
+    from fourc_tpu_torch.materials import make_material
+    from fourc_tpu_torch.physics import solid as ps
+
+    mat = make_material({"type": "neohooke", "youngs": 500.0, "nue": 0.3,
+                         "density": 2.7})
+    hi = tuple(n * h for n, h in zip(shape, (0.3, 0.2, 0.4)))
+    f = ps.SolidField(gridgen.box(*shape, hi=hi), {1: mat}, ps.SolidParams(),
+                      device=device, dtype=dtype)
+    return f.mass_stencil
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", SHAPES)
-def test_stencil_kernel_matches_twin(cuda, dtype, shape):
+@pytest.mark.parametrize("shape, stencil", STENCIL_CASES)
+def test_stencil_kernel_matches_twin(cuda, dtype, shape, stencil):
     _, t, field, *_ = _inputs(shape, dtype, cuda, 1)
-    B = np.random.default_rng(2).normal(size=(24, 24))
-    K = t(lat.collapse_stencil(B + B.T))
+    if stencil == "mass":
+        K = _mass_stencil(shape, dtype, cuda)
+    else:
+        B = np.random.default_rng(2).normal(size=(24, 24))
+        K = t(lat.collapse_stencil(B + B.T))
     v = field(1.0)
     lk.reset_launches()
     got = lk.stencil_matvec(K, v)

@@ -24,6 +24,7 @@ from fourc_tpu.ops import solid as jsolid
 from fourc_tpu_torch import convert
 from fourc_tpu_torch.core import gridgen
 from fourc_tpu_torch.core.cells import get_cell
+from fourc_tpu_torch.core.mesh import HEX8_OFFSETS
 from fourc_tpu_torch.materials.elastic import lame
 from fourc_tpu_torch.ops import cuda_build
 from fourc_tpu_torch.ops import lattice as lat
@@ -114,6 +115,28 @@ def test_stencil_twin_matches_reference(box, seed):
                                    jspec)
     _close(got, want)
     assert _ghost_is_zero(got)
+
+
+def test_assembled_27_point_stencil_matches_twin():
+    """The interior form of the B3 kernel: S[d] = sum over the hex8 node
+    pairs (a, b) with o(b) - o(a) = d of K[a, :, b, :]; on a node with all 8
+    elements, y_p = sum_d S[d] v[p + d] is the twin's A v."""
+    K = _sym_stencil(11)
+    off = np.asarray(HEX8_OFFSETS)
+    S = np.zeros((3, 3, 3, 3, 3))  # [dx+1, dy+1, dz+1, i, j]
+    for a in range(8):
+        for b in range(8):
+            S[tuple(off[b] - off[a] + 1)] += K[a, :, b, :]
+    nx, ny, nz = 5, 4, 6
+    spec = lat.LatticeSpec(pshape=(nx + 1, ny + 1, nz + 1), h=(1.0,) * 3)
+    v = _lat_t(_rand(spec, 1.0, 12), spec)
+    want = lat.stencil_matvec_ref(torch.as_tensor(K), v).numpy()
+    vn = v.numpy()
+    got = np.zeros((3, nx - 1, ny - 1, nz - 1))
+    for dx, dy, dz in np.ndindex(3, 3, 3):  # interior padded nodes 2..n
+        got += np.einsum("ij,j...->i...", S[dx, dy, dz],
+                         vn[:, 1 + dx:nx + dx, 1 + dy:ny + dy, 1 + dz:nz + dz])
+    _close(got, want[:, 2:nx + 1, 2:ny + 1, 2:nz + 1], rtol=1e-13)
 
 
 def _geom(spec):

@@ -192,11 +192,13 @@ def test_step_matches_reference(flagship):
 
 
 @pytest.mark.parametrize("change", ["lumped", "rayleigh", "statics",
-                                    "block_jacobi"])
+                                    "block_jacobi", "non_hex8"])
 def test_unported_configurations_refuse(change):
     disc = gridgen.box(2, 2, 2)
     params = ps.SolidParams(dyntype="genalpha", precond="gmg")
-    if change == "lumped":
+    if change == "non_hex8":  # a tet4 block must not be read as hex8
+        disc.blocks["hex8"].cell = "tet4"
+    elif change == "lumped":
         params.mass = "lumped"
     elif change == "rayleigh":
         params.rayleigh_alpha = 0.1
