@@ -97,11 +97,20 @@ _GP = {"force neohooke": 144 + 63 + 139 + 3 + 45 + 168,
        "tangent neohooke": 2 * 144 + 63 + 117 + 139 + 300 + 3 + 2 * 45 + 9
        + 168}
 _GEN = 196 + 45 + 45  # Jacobian, H = Hhat Jinv, P Jinv^T
+# B2 works by the 12 edges of an element (tangent_elem_kernel): per Gauss
+# point grad_edges 2 x 72 (4 FMAs per entry), the Neo-Hooke tangent in
+# deformation-gradient form 234 (tr H 2, tr H^2 18, det3 14, delta 5, lnJ
+# 4, F 3, cof3 27, 1 / det F 2, K : Hd 18, two mm 90, coefficients 6, Pd
+# 45) and accum_edges 81 (the weight 9, 36 FMAs); per element the edge
+# differences 2 x 36, edges_to_nodes 72, the gather's 24 and, with the
+# mass, 192 FMAs against the element mass.  No code in the repo computes
+# this operator with less, so it bounds B2's first element pass too.
+_B2_GP = 144 + 234 + 81
 ELEM_FLOPS = {
     ("force", "neohooke"): 8 * _GP["force neohooke"] + 24,
     ("force", "svk"): 8 * _GP["force svk"] + 24,
-    ("tangent", "neohooke"): 8 * _GP["tangent neohooke"] + 24,
-    ("tangent", "neohooke+mass"): 8 * (_GP["tangent neohooke"] + 106) + 24,
+    ("tangent", "neohooke"): 8 * _B2_GP + 72 + 72 + 24,
+    ("tangent", "neohooke+mass"): 8 * _B2_GP + 72 + 72 + 384 + 24,
     ("force_gen", "neohooke"): 8 * (_GP["force neohooke"] + _GEN) + 24,
     ("force_gen", "svk"): 8 * (_GP["force svk"] + _GEN) + 24,
     ("force_gen", "mass-only"): 8 * (144 + 14 + 1 + 106) + 24,
@@ -172,11 +181,12 @@ def phase_build():
         name = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '_ZN5fourc\d+"
-                          r"(\w+?_kernel)I([fd])(Lb([01])E)?", line)
+                          r"(\w+?_kernel)I([fd])(L([bi])([01])E)?", line)
             if m:
+                flag = {("b", "1"): ", linear", ("i", "0"): ", Neo-Hooke",
+                        ("i", "1"): ", SVK"}.get(m.group(4, 5), "")
                 name = (f"{m.group(1)}<"
-                        f"{'float' if m.group(2) == 'f' else 'double'}"
-                        f"{', linear' if m.group(4) == '1' else ''}>")
+                        f"{'float' if m.group(2) == 'f' else 'double'}{flag}>")
             elif "spill stores" in line:
                 spills = line.strip()
             elif "registers" in line:

@@ -4,9 +4,11 @@
 // _cof, _inv_from_cof, _strain_A, _stress_neohooke / _stress_neohooke_dual
 // and _stress_svk / _stress_svk_dual, plus the tangent stress Pd that every
 // tangent kernel shares, the one-element-per-thread helpers (tables in
-// shared memory, gradients, accumulation) and the general-geometry Gauss
-// loops of one element (force_gen_element, tangent_gen_element), which the
-// lattice kernels B4/B5 and the element-batch kernels B6/B7 both run.
+// shared memory, gradients, accumulation), the same by the 12 edges of an
+// element with the Neo-Hooke tangent in deformation-gradient form (B2) and
+// the general-geometry Gauss loops of one element (force_gen_element,
+// tangent_gen_element), which the lattice kernels B4/B5 and the
+// element-batch kernels B6/B7 both run.
 // Everything lives in registers; the index loops are fully unrolled so the
 // 3x3 arrays never touch local memory.
 //
@@ -309,6 +311,170 @@ __device__ __forceinline__ void zero_fe(T fe[8][3]) {
   for (int a = 0; a < 8; ++a)
 #pragma unroll
     for (int i = 0; i < 3; ++i) fe[a][i] = T(0);
+}
+
+// ---------------------------------------------------------------------------
+// One hex8 element per thread by its 12 edges
+//
+// Every node of a hex8 lies on exactly one edge along each axis j; edge e
+// of axis j runs from node edge_node(j, e, 0) to edge_node(j, e, 1):
+//   x: (0,1) (3,2) (4,5) (7,6);  y: (0,3) (1,2) (4,7) (5,6);
+//   z: (0,4) (1,5) (2,6) (3,7).
+// A trilinear hex8's gradients satisfy G[a-][j] = -G[a+][j] on every edge
+// along j, so with the edge table Ge[g][j][e] = (G[g][a+][j] - G[g][a-][j])/2
+// a gradient is H[i][j] = sum over the 4 edges e along j of
+// (x[a+][i] - x[a-][i]) Ge[g][j][e], and the accumulation sum_a P G_a^T
+// gathers into 36 edge sums R[j][e][i] that edges_to_nodes adds to a+ and
+// subtracts from a-.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int edge_node(int j, int e, int side) {
+  return j == 2 ? e + 4 * side
+       : j == 1 ? 4 * (e >> 1) + (side ? 3 - (e & 1) : (e & 1))
+                : 4 * (e >> 1) + ((e & 1) ? 3 - side : side);
+}
+
+// Tables of a uniform hex8 in shared memory: the edge table Ge[g][j][e], the
+// weights w[g] (wdet) and the element mass times mcoef,
+// Mc[a][b] = mcoef sum_g wdet_g N[g][a] N[g][b].
+template <typename T>
+struct EdgeShared {
+  T Ge[8][3][4];
+  T w[8];
+  T Mc[8][8];
+};
+
+// Builds the tables from G (8, 8, 3), wdet (8) and N (8, 8); one barrier.
+template <typename T>
+__device__ __forceinline__ void load_edge_tables(EdgeShared<T>& s, const T* G,
+                                                 const T* w, const T* N, T mcoef) {
+  for (int t = threadIdx.x; t < 96 + 8 + 64; t += blockDim.x) {
+    if (t < 96) {
+      const int g = t / 12, j = (t / 4) % 3, e = t % 4;
+      s.Ge[g][j][e] = T(0.5) * (G[(g * 8 + edge_node(j, e, 1)) * 3 + j] -
+                                G[(g * 8 + edge_node(j, e, 0)) * 3 + j]);
+    } else if (t < 104) {
+      s.w[t - 96] = w[t - 96];
+    } else {
+      const int a = (t - 104) / 8, b = (t - 104) % 8;
+      T m = T(0);
+#pragma unroll
+      for (int g = 0; g < 8; ++g) m += w[g] * N[g * 8 + a] * N[g * 8 + b];
+      s.Mc[a][b] = mcoef * m;
+    }
+  }
+  __syncthreads();
+}
+
+// dx[j][e][i] = xe[a+][i] - xe[a-][i]
+template <typename T>
+__device__ __forceinline__ void edge_diff(const T xe[8][3], T dx[3][4][3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        dx[j][e][i] = xe[edge_node(j, e, 1)][i] - xe[edge_node(j, e, 0)][i];
+}
+
+// H[i][j] = sum_e dx[j][e][i] Ge[j][e]  (grad regrouped by edges)
+template <typename T>
+__device__ __forceinline__ void grad_edges(const T dx[3][4][3], const T Ge[3][4],
+                                           T H[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      H[i][j] = dx[j][0][i] * Ge[j][0] + dx[j][1][i] * Ge[j][1] +
+                dx[j][2][i] * Ge[j][2] + dx[j][3][i] * Ge[j][3];
+}
+
+// R[j][e][i] += wg P[i][j] Ge[j][e]  (accum regrouped by edges)
+template <typename T>
+__device__ __forceinline__ void accum_edges(const T P[3][3], const T Ge[3][4], T wg,
+                                            T R[3][4][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T p = wg * P[i][j];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) R[j][e][i] += p * Ge[j][e];
+    }
+}
+
+// fe[a+] += R[j][e], fe[a-] -= R[j][e], axis by axis
+template <typename T>
+__device__ __forceinline__ void edges_to_nodes(const T R[3][4][3], T fe[8][3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        fe[edge_node(j, e, 1)][i] += R[j][e][i];
+        fe[edge_node(j, e, 0)][i] -= R[j][e][i];
+      }
+}
+
+// fe[a] += sum_b Mc[a][b] ve[b]  (the consistent mass of a uniform element)
+template <typename T>
+__device__ __forceinline__ void mass_table(const T ve[8][3], const T Mc[8][8],
+                                           T fe[8][3]) {
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const T m = Mc[a][b];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) fe[a][k] += m * ve[b][k];
+    }
+}
+
+// The Neo-Hooke tangent stress in deformation-gradient form.  The law of
+// stress_neohooke, S = mu (I - C^-1) + lam lnJ C^-1, is P = F S
+// = mu F + (lam lnJ - mu) F^-T, so along Hd
+//   Pd = mu Hd + lam tr(F^-1 Hd) F^-T - (lam lnJ - mu) (F^-1 Hd F^-1)^T,
+// written with K = cof(F) = det F F^-T and r = 1 / det F as
+//   Pd = mu Hd + r^2 (lam (K : Hd) K - (lam lnJ - mu) K Hd^T K):
+// no C, no C^-1 and one division.  det F = 1 + delta with the small-strain
+// accurate delta = tr H + ((tr H)^2 - tr(H^2)) / 2 + det H, and
+// lnJ = log1p(delta (2 + delta)) / 2 = log(det C) / 2, as the reference has
+// it (det F < 0 gives its value, not a NaN).  At H = 0 the terms add up to
+// mu (Hd + Hd^T) + lam tr(Hd) I with no cancellation.
+template <typename T>
+__device__ __forceinline__ void tangent_neohooke_F(const T H[3][3], const T Hd[3][3],
+                                                   T lam, T mu, T Pd[3][3]) {
+  const T trH = H[0][0] + H[1][1] + H[2][2];
+  T trH2 = T(0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) trH2 += H[i][j] * H[j][i];
+  const T delta = trH + T(0.5) * (trH * trH - trH2) + det3(H);
+  const T lnJ = T(0.5) * log1p_t(delta * (T(2) + delta));
+  T F[3][3], K[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
+  cof3(F, K);
+  const T r = T(1) / (T(1) + delta);
+  T KHd = T(0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) KHd += K[i][j] * Hd[i][j];
+  T Q[3][3], M[3][3];
+  mm_abt(K, Hd, Q);  // K Hd^T
+  mm(Q, K, M);       // K Hd^T K
+  const T r2 = r * r;
+  const T a = lam * KHd * r2, b = (lam * lnJ - mu) * r2;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Pd[i][j] = mu * Hd[i][j] + a * K[i][j] - b * M[i][j];
 }
 
 // ---------------------------------------------------------------------------

@@ -38,7 +38,7 @@
 //   faster at n=36, 18 and 9 too (tools/b3_variants.py): now the load pipe
 //   (misaligned rows of v, two wavefronts each), the boundary shell's
 //   strided columns and a launch floor of about 4 us share the time.
-// - B1/B2 do ~2-4k flops per element (8 Gauss points of 3x3 algebra),
+// - B1/B2 do 4-10k flops per element (8 Gauss points of 3x3 algebra),
 //   compute bound in registers.  One thread per REAL element computes the
 //   24-value element vector and writes it to a scratch buffer stored
 //   (24, E) so neighbouring threads write neighbouring addresses.  A second
@@ -47,6 +47,26 @@
 //   TPU kernel kept the element vectors in VMEM, and fusing the passes is
 //   later work.  B2 fuses the consistent-mass term mcoef * sum_g wdet N N^T v
 //   into the same element pass, as _jvp_kernel does.
+// - B2 runs in every CG iteration of the flagship.  Its first pass did
+//   10,288 flops per element with the mass: gradients and accumulation
+//   dense against all 8 corners (456 per Gauss point), the Neo-Hooke
+//   tangent in material form through C, C^-1, A and Ad (721), the mass at
+//   every Gauss point (106).  Limited by its instruction rate at 163
+//   registers, it took 0.1263 ms at n=72.  Now it works by the 12 edges of
+//   the element (lattice_common.cuh): a block prologue builds the edge table
+//   (G[a+] - G[a-]) / 2 and the 8x8 element mass in shared memory; a
+//   gradient entry is 4 FMAs on the edge differences instead of 8 on the
+//   corners, each Gauss point accumulates into 36 edge sums, the Neo-Hooke
+//   tangent is taken in deformation-gradient form (no C, one division), and
+//   the mass is one 8x8 product per element: 4,224 flops, 0.0235 ms of
+//   float32 peak.  At most 128 registers (4 blocks per SM, 24 B spilled);
+//   the compiler's own 155-159 leave 3 blocks and are 11-14% slower, holding
+//   the 24 corners instead of the 36 edge differences is slower at either
+//   count.  On the H100 at n=72 (float32, with the mass): 0.0745 ms by a
+//   CUDA graph of calls against 0.1263 for the first pass in the same run,
+//   31.6% of the bound against 18.6%; by a plain loop of calls 0.0785
+//   against 0.1299 (tools/b2_variants.py).  The element pass alone takes
+//   0.0568 ms, the gather 0.0153-0.0157.
 // - B4/B5 are B1/B2 on general geometry (box topology, arbitrary node
 //   positions): the element's 8 corner coordinates are read from a
 //   coordinate lattice x in the same layout, and each Gauss point's
@@ -81,6 +101,10 @@ constexpr int kStencilThreads = 128;
 constexpr int kStencilMinBlocks = 5;
 constexpr int kStencilRows = 4;
 constexpr int kGatherThreads = 256;
+// B2: at least 4 blocks of 128 threads per SM (at most 128 registers; the
+// compiler's own choice, 155 in float32, leaves 3 and is slower:
+// tools/b2_variants.py)
+constexpr int kTangentMinBlocks = 4;
 
 struct Dims {
   int nx, ny, nz;      // real elements per axis
@@ -363,30 +387,63 @@ force_elem_kernel(const T* __restrict__ u, const T* __restrict__ Gg,
   store_fe(fe, e, d.E, scratch);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kElemThreads)
-tangent_elem_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                    const T* __restrict__ Gg, const T* __restrict__ wg,
-                    const T* __restrict__ Ng, T lam, T mu, int model, T mcoef,
-                    Dims d, T* __restrict__ scratch) {
-  __shared__ GeomShared<T> s;
-  load_geom(s, Gg, wg, Ng);
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= d.E) return;
-  T ue[8][3], ve[8][3];
-  load_corners(u, d, e, ue);
-  load_corners(v, d, e, ve);
-  T fe[8][3];
-  zero_fe(fe);
+// B2: fe = K(u) v + mcoef M v of element e by its 12 edges
+// (lattice_common.cuh): the edge differences of u and v stay in registers
+// through the Gauss loop, each Gauss point accumulates into 36 edge sums,
+// which become the 24 nodal values after the loop; the mass is one product
+// with the 8x8 element mass of the shared tables (v's corners read again).
+// kModel: 0 = Neo-Hooke (deformation-gradient form), 1 = St.
+// Venant-Kirchhoff (tangent_stress).
+template <typename T, int kModel>
+__device__ __forceinline__ void tangent_edge_element(const T* __restrict__ u,
+                                                     const T* __restrict__ v,
+                                                     const EdgeShared<T>& s, T lam,
+                                                     T mu, T mcoef, const Dims& d,
+                                                     long long e, T fe[8][3]) {
+  T du[3][4][3], dv[3][4][3], R[3][4][3];
+  {
+    T xe[8][3];
+    load_corners(u, d, e, xe);
+    edge_diff(xe, du);
+    load_corners(v, d, e, xe);
+    edge_diff(xe, dv);
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) R[j][q][0] = R[j][q][1] = R[j][q][2] = T(0);
 #pragma unroll 1
   for (int g = 0; g < 8; ++g) {
     T H[3][3], Hd[3][3], Pd[3][3];
-    grad(ue, s.G[g], H);
-    grad(ve, s.G[g], Hd);
-    tangent_stress(H, Hd, lam, mu, model, Pd);
-    accum(Pd, s.G[g], s.w[g], fe);
-    if (mcoef != T(0)) mass_accum(ve, s.N[g], mcoef * s.w[g], fe);
+    grad_edges(du, s.Ge[g], H);
+    grad_edges(dv, s.Ge[g], Hd);
+    if constexpr (kModel == 0)
+      tangent_neohooke_F(H, Hd, lam, mu, Pd);
+    else
+      tangent_stress(H, Hd, lam, mu, 1, Pd);
+    accum_edges(Pd, s.Ge[g], s.w[g], R);
   }
+  zero_fe(fe);
+  if (mcoef != T(0)) {
+    T ve[8][3];
+    load_corners(v, d, e, ve);
+    mass_table(ve, s.Mc, fe);
+  }
+  edges_to_nodes(R, fe);
+}
+
+template <typename T, int kModel>
+__global__ void __launch_bounds__(kElemThreads, kTangentMinBlocks)
+tangent_elem_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                    const T* __restrict__ Gg, const T* __restrict__ wg,
+                    const T* __restrict__ Ng, T lam, T mu, T mcoef, Dims d,
+                    T* __restrict__ scratch) {
+  __shared__ EdgeShared<T> s;
+  load_edge_tables(s, Gg, wg, Ng, mcoef);
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= d.E) return;
+  T fe[8][3];
+  tangent_edge_element<T, kModel>(u, v, s, lam, mu, mcoef, d, e, fe);
   store_fe(fe, e, d.E, scratch);
 }
 
@@ -494,8 +551,13 @@ int tangent(const T* u, const T* v, const T* G, const T* w, const T* N, double l
             int nz, void* stream) {
   const Dims d(nx, ny, nz);
   const cudaStream_t st = (cudaStream_t)stream;
-  tangent_elem_kernel<T><<<blocks_for(d.E, kElemThreads), kElemThreads, 0, st>>>(
-      u, v, G, w, N, (T)lam, (T)mu, model, (T)mcoef, d, scratch);
+  const unsigned int blocks = blocks_for(d.E, kElemThreads);
+  if (model == 0)
+    tangent_elem_kernel<T, 0><<<blocks, kElemThreads, 0, st>>>(
+        u, v, G, w, N, (T)lam, (T)mu, (T)mcoef, d, scratch);
+  else
+    tangent_elem_kernel<T, 1><<<blocks, kElemThreads, 0, st>>>(
+        u, v, G, w, N, (T)lam, (T)mu, (T)mcoef, d, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gather_kernel<T><<<blocks_for(d.n, kGatherThreads), kGatherThreads, 0, st>>>(

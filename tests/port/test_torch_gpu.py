@@ -108,16 +108,23 @@ def test_force_kernel_matches_twin(cuda, dtype, shape, model):
         <= TOL[dtype]
 
 
+# u of 4e-2 keeps det F >= 0.2 on (9, 7, 12); at 1e-1 elements invert and
+# |det F| comes near 0 there, where the float32 twin is itself off the
+# float64 answer by more than 1e-4, so no kernel can be held to it
+# (test_torch_lattice.py::test_gpu_tangent_inputs_conditioning).
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", [(1, 1, 1)] + SHAPES)
 @pytest.mark.parametrize("mcoef", [0.0, 137.5])
-def test_tangent_kernel_matches_twin(cuda, dtype, shape, mcoef):
+@pytest.mark.parametrize("model, scale", [("neohooke", 1e-2),
+                                          ("neohooke", 4e-2), ("svk", 1e-2)])
+def test_tangent_kernel_matches_twin(cuda, dtype, shape, mcoef, model, scale):
     _, _, field, G, wdet, N = _inputs(shape, dtype, cuda, 4)
     lam, mu = lame(500.0, 0.3)
-    u, v = field(1e-2), field(1.0)
-    got = lk.neo_tangent(u, v, G, wdet, N, lam, mu, "neohooke", mcoef)
-    want = lat.neo_jvp_ref(u, v, G, wdet, lam, mu, "neohooke", N=N,
-                           mcoef=mcoef)
+    u, v = field(scale), field(1.0)
+    lk.reset_launches()
+    got = lk.neo_tangent(u, v, G, wdet, N, lam, mu, model, mcoef)
+    assert lk.launches["tangent"] == 1
+    want = lat.neo_jvp_ref(u, v, G, wdet, lam, mu, model, N=N, mcoef=mcoef)
     assert _rel(got, want) <= TOL[dtype]
 
 

@@ -26,6 +26,7 @@ from fourc_tpu_torch.core import gridgen
 from fourc_tpu_torch.core.cells import get_cell
 from fourc_tpu_torch.core.mesh import HEX8_OFFSETS
 from fourc_tpu_torch.materials.elastic import lame
+from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import cuda_build
 from fourc_tpu_torch.ops import lattice as lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
@@ -260,3 +261,154 @@ def test_kernel_input_checks(bad):
         with pytest.raises(ValueError):
             lk._dims(x.to(torch.float16))
     assert lk._dims(x) == (2, 3, 4)
+
+
+# The algebra of the B2 element pass (csrc/lattice_common.cuh: edge_node,
+# load_edge_tables, grad_edges, accum_edges, edges_to_nodes, mass_table,
+# tangent_neohooke_F), mirrored in float64 against the twin's own
+# functions.  Edge e of axis j runs from node _EDGES[j][e][0] to
+# _EDGES[j][e][1].
+_EDGES = (((0, 1), (3, 2), (4, 5), (7, 6)), ((0, 3), (1, 2), (4, 7), (5, 6)),
+          ((0, 4), (1, 5), (2, 6), (3, 7)))
+
+
+def _edge_table(G):
+    """Ge[g, j, e] = (G[g, a+, j] - G[g, a-, j]) / 2."""
+    return torch.stack([torch.stack([0.5 * (G[:, ap, j] - G[:, am, j])
+                                     for am, ap in _EDGES[j]], dim=-1)
+                        for j in range(3)], dim=1)
+
+
+def _edge_diff(xe):
+    """(8, 3, ...) corner values -> (3, 4, 3, ...) edge differences."""
+    return torch.stack([torch.stack([xe[ap] - xe[am] for am, ap in _EDGES[j]])
+                        for j in range(3)])
+
+
+def _edges_to_nodes(R):
+    fe = torch.zeros((8,) + R.shape[2:], dtype=R.dtype)
+    for j in range(3):
+        for e, (am, ap) in enumerate(_EDGES[j]):
+            fe[ap] += R[j, e]
+            fe[am] -= R[j, e]
+    return fe
+
+
+def _tangent_neohooke_F(H, Hd, lam, mu):
+    """Pd = mu Hd + r^2 (lam (K : Hd) K - (lam lnJ - mu) K Hd^T K), K =
+    cof(I + H), r = 1 / det(I + H)."""
+    trH = gm.tr3l(H)
+    delta = (trH + 0.5 * (trH * trH - torch.einsum("ij...,ji...->...", H, H))
+             + gm.det3l(H))
+    lnJ = 0.5 * torch.log1p(delta * (2.0 + delta))
+    K = gm.cof3l(H + gm.eye3l(H))
+    r2 = 1.0 / (1.0 + delta) ** 2
+    KHd = torch.einsum("ij...,ij...->...", K, Hd)
+    M = torch.einsum("ik...,jk...,jl...->il...", K, Hd, K)
+    return mu * Hd + lam * KHd * r2 * K - (lam * lnJ - mu) * r2 * M
+
+
+def test_edge_gradient_and_accumulation_match_dense(box):
+    """H = sum_a x_a G_a^T and fe_a = P G_a regrouped by the 12 edges."""
+    _, spec, _, _ = box
+    G = torch.as_tensor(_geom(spec)[0])
+    Ge = _edge_table(G)
+    dN = torch.as_tensor(get_cell("hex8").dN)
+    for j in range(3):  # dN[a-] = -dN[a+] along every edge, to roundoff
+        for am, ap in _EDGES[j]:
+            assert (dN[:, am, j] + dN[:, ap, j]).abs().max() <= 5e-14
+    rng = np.random.default_rng(21)
+    xe = torch.as_tensor(rng.normal(size=(8, 3, 6)))
+    P = torch.as_tensor(rng.normal(size=(3, 3, 6)))
+    dx = _edge_diff(xe)
+    for g in range(8):
+        _close(torch.einsum("jei...,je->ij...", dx, Ge[g]),
+               torch.einsum("ai...,aj->ij...", xe, G[g]), rtol=1e-13)
+        _close(_edges_to_nodes(torch.einsum("ij...,je->jei...", P, Ge[g])),
+               torch.einsum("ij...,aj->ai...", P, G[g]), rtol=1e-13)
+
+
+def test_neohooke_tangent_deformation_gradient_form():
+    """The deformation-gradient form equals the material form of the twin,
+    on |H| <= 0.3 and on one H with det(I + H) < 0."""
+    lam, mu = lame(E_MOD, NUE)
+    rng = np.random.default_rng(22)
+    H = rng.uniform(-0.3, 0.3, size=(3, 3, 16))
+    H[:, :, -1] = np.diag([-1.6, 0.1, -0.2]) + 0.05 * H[:, :, -1]
+    assert np.linalg.det(np.eye(3) + H[:, :, -1]) < 0
+    H, Hd = torch.as_tensor(H), torch.as_tensor(rng.normal(size=(3, 3, 16)))
+    _close(_tangent_neohooke_F(H, Hd, lam, mu),
+           lat._tangent_stress(H, Hd, lam, mu, "neohooke"))
+
+
+def test_element_mass_table_matches_mass_gp(box):
+    """Me = sum_g wdet_g N_g N_g^T applied to v == sum_g _mass_gp."""
+    _, spec, _, _ = box
+    wdet = torch.as_tensor(_geom(spec)[1])
+    N = torch.as_tensor(get_cell("hex8").N)
+    ve = torch.as_tensor(np.random.default_rng(23).normal(size=(8, 3, 6)))
+    Me = torch.einsum("g,ga,gb->ab", wdet, N, N)
+    want = sum(lat._mass_gp(ve, N[g], 137.5 * wdet[g]) for g in range(8))
+    _close(torch.einsum("ab,bk...->ak...", 137.5 * Me, ve), want, rtol=1e-13)
+
+
+@pytest.mark.parametrize("model, mcoef", [("neohooke", 0.0),
+                                          ("neohooke", 137.5), ("svk", 137.5)])
+def test_edge_element_pass_matches_twin(box, model, mcoef):
+    """The whole B2 element pass by edges on the 4x3x5 box == neo_jvp_ref."""
+    _, spec, _, _ = box
+    G, wdet = (torch.as_tensor(x) for x in _geom(spec))
+    N = torch.as_tensor(get_cell("hex8").N)
+    lam, mu = lame(E_MOD, NUE)
+    u, v = _lat_t(_rand(spec, 5e-2, 24), spec), _lat_t(_rand(spec, 1.0, 25),
+                                                        spec)
+    Ge = _edge_table(G)
+    du = _edge_diff(torch.stack(lat._corners(u)))
+    ve = torch.stack(lat._corners(v))
+    dv = _edge_diff(ve)
+    R = torch.zeros_like(du)
+    for g in range(8):
+        H = torch.einsum("jei...,je->ij...", du, Ge[g])
+        Hd = torch.einsum("jei...,je->ij...", dv, Ge[g])
+        Pd = (_tangent_neohooke_F(H, Hd, lam, mu) if model == "neohooke"
+              else lat._tangent_stress(H, Hd, lam, mu, model))
+        R += torch.einsum("ij...,je->jei...", wdet[g] * Pd, Ge[g])
+    Me = mcoef * torch.einsum("g,ga,gb->ab", wdet, N, N)
+    fe = torch.einsum("ab,bk...->ak...", Me, ve) + _edges_to_nodes(R)
+    want = lat.neo_jvp_ref(u, v, G, wdet, lam, mu, model, N=N, mcoef=mcoef)
+    _close(lat._assemble(fe, u), want)
+
+
+@pytest.mark.parametrize("scale", [4e-2, 1e-1])
+def test_gpu_tangent_inputs_conditioning(scale):
+    """The large-deformation inputs of test_torch_gpu.py's tangent test on
+    its (9, 7, 12) box (same spacing, seed and draw order): at u = 4e-2,
+    det F >= 0.2 and the float32 twin is within 1e-5 of the float64 one,
+    so 1e-4 can hold a kernel; at 1e-1 elements invert, |det F| comes near
+    0 and the float32 twin is off the float64 answer by more than 1e-4
+    itself."""
+    shape = (9, 7, 12)
+    spec = lat.LatticeSpec(pshape=tuple(s + 1 for s in shape),
+                           h=(0.3, 0.2, 0.4))
+    rng = np.random.default_rng(4)
+    u, v = (rng.normal(size=spec.ndof) * s for s in (scale, 1.0))
+    G, wdet = _geom(spec)
+    N = get_cell("hex8").N
+    lam, mu = lame(500.0, 0.3)
+    want = {}
+    for dtype in (torch.float64, torch.float32):
+        ul, vl = (lat.to_lattice(torch.as_tensor(x, dtype=dtype), spec)
+                  for x in (u, v))
+        want[dtype] = lat.neo_jvp_ref(ul, vl, G, wdet, lam, mu, "neohooke",
+                                      N=N, mcoef=137.5).double()
+    ue = torch.stack(lat._corners(_lat_t(u, spec)))
+    detF = torch.stack([gm.det3l(H + gm.eye3l(H)) for H in (
+        torch.einsum("ai...,aj->ij...", ue, torch.as_tensor(G[g]))
+        for g in range(8))])
+    ref = want[torch.float64]
+    rel32 = float((want[torch.float32] - ref).abs().max() / ref.abs().max())
+    if scale == 4e-2:
+        assert float(detF.min()) >= 0.2 and rel32 <= 1e-5
+    else:
+        assert float(detF.min()) < 0 and float(detF.abs().min()) < 1e-2
+        assert rel32 > 1e-4
