@@ -11,12 +11,13 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
 2. build: compiles both sources of fourc_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc process each, started together;
 3. kernels: each CUDA kernel against its plain PyTorch twin on the card, at
-   n=16 and at its path's full size, in float64 (max relative error
-   <= 1e-10) and float32 (<= 1e-4), plus kernel and twin times at full size
-   in float32.  A kernel's ``ms`` is its device time per call from a CUDA
-   graph of 20 calls; ``loop_ms`` is a plain loop of 20 wrapper calls, which
-   reads the host's time per call where that is longer (twins: a plain
-   loop).  B1-B3 run on the uniform box and B4-B5 on the jittered box
+   n=16 and at its path's full size (B5's linear mode also on the coarse
+   GMG levels of the jittered path, n=36, 18 and 9), in float64 (max
+   relative error <= 1e-10) and float32 (<= 1e-4), plus kernel and twin
+   times at full size in float32.  A kernel's ``ms`` is its device time
+   per call from a CUDA graph of 20 calls; ``loop_ms`` is a plain loop of
+   20 wrapper calls, which reads the host's time per call where that is
+   longer (twins: a plain loop).  B1-B3 run on the uniform box and B4-B5 on the jittered box
    (n=72), B6-B7 on element batches of the permuted box (n=56);
 4. correctness: two gen-alpha steps at n=6 in float64 on the GPU (kernels)
    against the same steps on the CPU (twins, which tests/port holds to the
@@ -106,6 +107,20 @@ _GEN = 196 + 45 + 45  # Jacobian, H = Hhat Jinv, P Jinv^T
 # mass, 192 FMAs against the element mass.  No code in the repo computes
 # this operator with less, so it bounds B2's first element pass too.
 _B2_GP = 144 + 234 + 81
+# B5 works by the 12 edges of an element too (tangent_gen_edge_kernel): per
+# Gauss point the Jacobian J by grad_edges 72, K = cof(J) 27, det J from K's
+# first row 5, 1 / det J 1, Hhat(v) by grad_edges 72, Hd' = Hhat K^T 45,
+# Q = Pd K 45, its weight w / det J 10 and accum_edges 72 (349 in all); then
+# the tangent: linear 16 (lam tr, 2 mu, 3 diagonal FMAs, 3 symmetric pairs),
+# or Neo-Hooke Hhat(u) 72, H = Hhat K^T / det J 54 and tangent_neohooke_F
+# 234 (360).  Per element the edge differences 36 per field (x, v and u),
+# edges_to_nodes 72, the gather's 24 and, with the mass, 106 per Gauss point
+# after the loop (mcoef w det J 2, N . v 48, c N 8, 24 FMAs 48).  No code in
+# the repo computes this operator with less, so it bounds B5's first element
+# pass too (counted as the dense form: 12,936 flops with the mass, 5,008
+# linear).
+_B5_GP = 72 + 27 + 5 + 1 + 72 + 45 + 45 + 10 + 72
+_B5_LIN, _B5_NEO = _B5_GP + 16, _B5_GP + 72 + 54 + 234
 ELEM_FLOPS = {
     ("force", "neohooke"): 8 * _GP["force neohooke"] + 24,
     ("force", "svk"): 8 * _GP["force svk"] + 24,
@@ -116,12 +131,9 @@ ELEM_FLOPS = {
     ("force_gen", "mass-only"): 8 * (144 + 14 + 1 + 106) + 24,
     ("force_gen", "neohooke+mass"): 8 * (_GP["force neohooke"] + _GEN + 106)
     + 24,
-    ("tangent_gen", "neohooke"): 8 * (_GP["tangent neohooke"] + _GEN + 45)
-    + 24,
-    ("tangent_gen", "neohooke+mass"): 8 * (_GP["tangent neohooke"] + _GEN
-                                           + 45 + 106) + 24,
-    ("tangent_gen", "linear (u=0)"): 8 * (196 + 144 + 45 + 9 + 16 + 45 + 168)
-    + 24,
+    ("tangent_gen", "neohooke"): 8 * _B5_NEO + 3 * 36 + 72 + 24,
+    ("tangent_gen", "neohooke+mass"): 8 * (_B5_NEO + 106) + 3 * 36 + 72 + 24,
+    ("tangent_gen", "linear (u=0)"): 8 * _B5_LIN + 2 * 36 + 72 + 24,
 }
 # B6/B7: B4/B5 on an element batch, without the gather pass
 for _kind in ("neohooke", "svk", "mass-only", "neohooke+mass"):
@@ -181,10 +193,14 @@ def phase_build():
         name = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '_ZN5fourc\d+"
-                          r"(\w+?_kernel)I([fd])(L([bi])([01])E)?", line)
+                          r"(\w+?_kernel)I([fd])((?:L[bi]\d+E)*)", line)
             if m:
-                flag = {("b", "1"): ", linear", ("i", "0"): ", Neo-Hooke",
-                        ("i", "1"): ", SVK"}.get(m.group(4, 5), "")
+                args = re.findall(r"L[bi](\d+)E", m.group(3))
+                flag = ""
+                if "tangent" in m.group(1) and args:  # model[, mass]
+                    flag = ", " + ("Neo-Hooke", "SVK", "linear")[int(args[0])]
+                    if len(args) > 1:
+                        flag += ", mass" if args[1] == "1" else ""
                 name = (f"{m.group(1)}<"
                         f"{'float' if m.group(2) == 'f' else 'double'}{flag}>")
             elif "spill stores" in line:
@@ -395,6 +411,55 @@ def _kernel_cases(n, dtype, rng, cell, lam, mu, mcoef):
     return cases
 
 
+def _level_cases(dtype, rng, cell, lam, mu):
+    """(n, kernel, twin, inputs) for B5's linear mode on the coarse GMG
+    levels of the jittered path, n = 36, 18 and 9: every second node of the
+    level above, coordinates included, as linalg/gmg.py coarsens them.  The
+    launcher picks its mapping from the element count, so these are the
+    shapes at which each mapping runs on that path."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype,
+                               device="cuda").contiguous()
+
+    full = FULL_N["jittered"]
+    coords = np.asarray(make_mesh(full, "jittered").coords).reshape(
+        (full + 1,) * 3 + (3,))
+    tab = (t(cell.dN), t(cell.gauss_weights), t(cell.N))
+    cases = []
+    for step in (2, 4, 8):
+        n = full // step
+        spec = lat.LatticeSpec(pshape=(n + 1,) * 3, h=None)
+        x = lat.coord_lattice(coords[::step, ::step, ::step].reshape(-1, 3),
+                              spec, dtype, "cuda")
+        vl = lat.to_lattice(t(rng.normal(size=spec.ndof) / n), spec)
+        cases.append((
+            n,
+            lambda x=x, vl=vl: lk.neo_tangent_gen(x, None, vl, *tab, lam, mu,
+                                                  "svk", mcoef=0.0),
+            lambda x=x, vl=vl: lat.neo_jvp_gen_ref(x, None, vl, *tab, lam, mu,
+                                                   "svk", mcoef=0.0),
+            (x, vl)))
+    return cases
+
+
+def _check(label, n, dtype, tol, kern, twin):
+    """Runs a kernel and its twin; raises unless both are finite and agree
+    to ``tol`` (max relative error); returns (kernel output, max abs
+    error)."""
+    got, want = kern(), twin()
+    torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError(f"{label} n={n}: non-finite output")
+    abs_err = float((got - want).abs().max())
+    rel = abs_err / float(want.abs().max())
+    log("kernels", f"{label:22s} n={n:2d} {str(dtype)[6:]}: "
+                   f"max rel err {rel:.3e} (tol {tol:g})")
+    if not rel <= tol:
+        raise RuntimeError(f"{label} n={n} {dtype}: rel err "
+                           f"{rel:.3e} > {tol:g}")
+    return got, abs_err
+
+
 def phase_kernels():
     """Each kernel against its twin; returns per-kernel float32 results at
     the full size of the kernel's path (times and bound of the first case of
@@ -413,18 +478,7 @@ def phase_kernels():
                      else _solid_cases(n, dtype, rng, lam, mu, mcoef))
             for key, case, kern, twin, ins in cases:
                 label = f"{KERNELS[key][0]} {case}"
-                got, want = kern(), twin()
-                torch.cuda.synchronize()
-                if not (torch.isfinite(got).all()
-                        and torch.isfinite(want).all()):
-                    raise RuntimeError(f"{label} n={n}: non-finite output")
-                abs_err = float((got - want).abs().max())
-                rel = abs_err / float(want.abs().max())
-                log("kernels", f"{label:22s} n={n:2d} {str(dtype)[6:]}: "
-                               f"max rel err {rel:.3e} (tol {tol:g})")
-                if not rel <= tol:
-                    raise RuntimeError(f"{label} n={n} {dtype}: rel err "
-                                       f"{rel:.3e} > {tol:g}")
+                got, abs_err = _check(label, n, dtype, tol, kern, twin)
                 if n == 16 or dtype != torch.float32:
                     continue
                 r = results[key]
@@ -441,6 +495,19 @@ def phase_kernels():
                              library_ms=None)  # no PyTorch call is exact
                     msg += f", twin {r['plain_ms']:.3f} ms"
                 log("kernels", msg)
+    rng = np.random.default_rng(FULL_N["jittered"] + 1)
+    for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+        for n, kern, twin, ins in _level_cases(dtype, rng, cell, lam, mu):
+            label = "B5 linear (u=0), GMG"
+            got, abs_err = _check(label, n, dtype, tol, kern, twin)
+            if dtype != torch.float32:
+                continue
+            r = results["tangent_gen"]
+            r["max_abs_err"] = max(r["max_abs_err"], abs_err)
+            bound, by = _bound("tangent_gen", "linear (u=0)", n, ins + (got,))
+            log("kernels", f"{label:22s} n={n} float32: kernel "
+                           f"{_time_graph(kern):.4f} ms, bound {bound:.5f} ms "
+                           f"({by})")
     return results
 
 

@@ -5,10 +5,10 @@
 // and _stress_svk / _stress_svk_dual, plus the tangent stress Pd that every
 // tangent kernel shares, the one-element-per-thread helpers (tables in
 // shared memory, gradients, accumulation), the same by the 12 edges of an
-// element with the Neo-Hooke tangent in deformation-gradient form (B2) and
-// the general-geometry Gauss loops of one element (force_gen_element,
-// tangent_gen_element), which the lattice kernels B4/B5 and the
-// element-batch kernels B6/B7 both run.
+// element with the Neo-Hooke tangent in deformation-gradient form (B2), the
+// general-geometry Gauss loops of one element against its 8 corners
+// (force_gen_element for B4 and B6, tangent_gen_element for B7) and the
+// general-geometry tangent by the 12 edges (B5).
 // Everything lives in registers; the index loops are fully unrolled so the
 // 3x3 arrays never touch local memory.
 //
@@ -344,15 +344,22 @@ struct EdgeShared {
   T Mc[8][8];
 };
 
+// Entry t = (g * 3 + j) * 4 + e of the edge table of G (8, 8, 3):
+// Ge[g][j][e] = (G[g][a+][j] - G[g][a-][j]) / 2
+template <typename T>
+__device__ __forceinline__ T edge_table_entry(const T* G, int t) {
+  const int g = t / 12, j = (t / 4) % 3, e = t % 4;
+  return T(0.5) * (G[(g * 8 + edge_node(j, e, 1)) * 3 + j] -
+                   G[(g * 8 + edge_node(j, e, 0)) * 3 + j]);
+}
+
 // Builds the tables from G (8, 8, 3), wdet (8) and N (8, 8); one barrier.
 template <typename T>
 __device__ __forceinline__ void load_edge_tables(EdgeShared<T>& s, const T* G,
                                                  const T* w, const T* N, T mcoef) {
   for (int t = threadIdx.x; t < 96 + 8 + 64; t += blockDim.x) {
     if (t < 96) {
-      const int g = t / 12, j = (t / 4) % 3, e = t % 4;
-      s.Ge[g][j][e] = T(0.5) * (G[(g * 8 + edge_node(j, e, 1)) * 3 + j] -
-                                G[(g * 8 + edge_node(j, e, 0)) * 3 + j]);
+      (&s.Ge[0][0][0])[t] = edge_table_entry(G, t);
     } else if (t < 104) {
       s.w[t - 96] = w[t - 96];
     } else {
@@ -580,6 +587,153 @@ __device__ __forceinline__ void tangent_gen_element(const T xe[8][3], const T ue
     accum_gen(Pd, Jinv, s.G[g], wdet, fe);
     if (mcoef != T(0)) mass_accum(ve, s.N[g], mcoef * wdet, fe);
   }
+}
+
+// ---------------------------------------------------------------------------
+// General geometry by the 12 edges (B5)
+//
+// The reference gradients of a trilinear hex8 satisfy dN[a-][j] = -dN[a+][j]
+// along every edge of axis j, so one edge table Ge[g][j][e] (edge_table_entry
+// of dN) serves every element and every GMG level: the Jacobian
+// J = sum_a x_a dN_a^T and the reference gradient Hhat(v) = sum_a v_a dN_a^T
+// are grad_edges on edge differences.  With K = cof(J) = det J Jinv^T,
+//   H = Hhat Jinv = Hhat K^T / det J   and   wdet P Jinv^T = w P K,
+// so no inverse and no wdet is formed.  Pd is linear in Hd, so the one
+// division of a Gauss point moves onto its weight: with Hd' = Hhat(v) K^T =
+// det J Hd, the edge sums gather (w / det J) Pd(H, Hd') K.
+// ---------------------------------------------------------------------------
+
+// kModel of the general-geometry tangent: 0 = Neo-Hooke, 1 = St.
+// Venant-Kirchhoff (as cuda_build.MODELS), kLinear = linear elasticity at
+// u = 0 (the exact-geometry GMG level operator; u is not read)
+constexpr int kLinear = 2;
+
+// Tables of general geometry in shared memory: the edge table Ge[g][j][e] of
+// dN, the Gauss weights w[g] and the shape functions N[g][a].
+template <typename T>
+struct GenEdgeShared {
+  T Ge[8][3][4];
+  T w[8];
+  T N[8][8];
+};
+
+// Builds the tables from dN (8, 8, 3), w (8) and N (8, 8; not loaded when
+// nullptr); one barrier.
+template <typename T>
+__device__ __forceinline__ void load_gen_edge_tables(GenEdgeShared<T>& s, const T* dN,
+                                                     const T* w, const T* N) {
+  const int n = N != nullptr ? 96 + 8 + 64 : 96 + 8;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    if (t < 96)
+      (&s.Ge[0][0][0])[t] = edge_table_entry(dN, t);
+    else if (t < 104)
+      s.w[t - 96] = w[t - 96];
+    else
+      (&s.N[0][0])[t - 104] = N[t - 104];
+  }
+  __syncthreads();
+}
+
+// Pd = lam tr(Hd) I + mu (Hd + Hd^T): every law's tangent at u = 0
+template <typename T>
+__device__ __forceinline__ void linear_stress(const T Hd[3][3], T lam, T mu, T Pd[3][3]) {
+  const T lt = lam * (Hd[0][0] + Hd[1][1] + Hd[2][2]);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      Pd[i][j] = i == j ? lt + T(2) * mu * Hd[i][i] : mu * (Hd[i][j] + Hd[j][i]);
+}
+
+// det J Pd of one Gauss point, from K = cof(J), r = 1 / det J, the reference
+// gradient Hv = Hhat(v) and, unless kLinear, the edge differences du of u.
+template <typename T, int kModel>
+__device__ __forceinline__ void tangent_gen_Pd(const T K[3][3], T r, const T Hv[3][3],
+                                               const T du[3][4][3], const T Ge[3][4],
+                                               T lam, T mu, T Pd[3][3]) {
+  T Hd[3][3];
+  mm_abt(Hv, K, Hd);  // det J Hd
+  if constexpr (kModel == kLinear) {
+    linear_stress(Hd, lam, mu, Pd);
+  } else {
+    T Hu[3][3], H[3][3];
+    grad_edges(du, Ge, Hu);
+    mm_abt(Hu, K, H);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) H[i][j] *= r;
+    if constexpr (kModel == 0)
+      tangent_neohooke_F(H, Hd, lam, mu, Pd);
+    else
+      tangent_stress(H, Hd, lam, mu, 1, Pd);
+  }
+}
+
+// Q = (w / det J) Pd(H, Hd') K of one Gauss point, the matrix whose product
+// with dN_a is the Gauss point's share of fe_a; returns det J.
+template <typename T, int kModel>
+__device__ __forceinline__ T tangent_gen_gp(const T J[3][3], const T du[3][4][3],
+                                            const T dv[3][4][3], const T Ge[3][4], T w,
+                                            T lam, T mu, T Q[3][3]) {
+  T K[3][3], Hv[3][3], Pd[3][3];
+  cof3(J, K);
+  const T det = J[0][0] * K[0][0] + J[0][1] * K[0][1] + J[0][2] * K[0][2];
+  const T r = T(1) / det;
+  grad_edges(dv, Ge, Hv);
+  tangent_gen_Pd<T, kModel>(K, r, Hv, du, Ge, lam, mu, Pd);
+  mm(Pd, K, Q);
+  const T s = w * r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Q[i][j] *= s;
+  return det;
+}
+
+// The Gauss loop of one element by its edges: R[j][e][i] = edge sums of
+// sum_g Q_g Ge[g] (edges_to_nodes turns them into fe); with kMass,
+// c[7 - g] = det J_g after the loop (a shift register: static indices keep
+// the 8 values in registers).  du is not read when kLinear.
+template <typename T, int kModel, bool kMass>
+__device__ __forceinline__ void tangent_gen_edge_element(const T dx[3][4][3],
+                                                         const T du[3][4][3],
+                                                         const T dv[3][4][3],
+                                                         const GenEdgeShared<T>& s,
+                                                         T lam, T mu, T R[3][4][3],
+                                                         T c[8]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) R[j][q][0] = R[j][q][1] = R[j][q][2] = T(0);
+#pragma unroll 1
+  for (int g = 0; g < 8; ++g) {
+    T J[3][3], Q[3][3];
+    grad_edges(dx, s.Ge[g], J);
+    const T det = tangent_gen_gp<T, kModel>(J, du, dv, s.Ge[g], s.w[g], lam, mu, Q);
+    accum_edges(Q, s.Ge[g], T(1), R);
+    if constexpr (kMass) {
+#pragma unroll
+      for (int k = 7; k > 0; --k) c[k] = c[k - 1];
+      c[0] = det;
+    }
+  }
+}
+
+// fe[a] += sum_g mcoef w_g det J_g N[g][a] (N[g] . ve): the consistent mass
+// of a general element after its Gauss loop (c from tangent_gen_edge_element)
+template <typename T>
+__device__ __forceinline__ void mass_gen(const T ve[8][3], const GenEdgeShared<T>& s,
+                                         const T c[8], T mcoef, T fe[8][3]) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) mass_accum(ve, s.N[g], mcoef * s.w[g] * c[7 - g], fe);
+}
+
+// The edge of axis j through node a: node a is edge_node(j, a's edge,
+// a's offset along j), so dN[g][a][j] = (2 offset - 1) Ge[g][j][edge]
+__host__ __device__ constexpr int node_edge(int a, int j) {
+  return j == 2 ? (a & 3) : 2 * (a >> 2) + (j == 1 ? ((a & 3) < 2 ? (a & 3) : 3 - (a & 3))
+                                                   : int((a & 3) >= 2));
 }
 
 }  // namespace fourc

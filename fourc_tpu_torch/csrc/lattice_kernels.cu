@@ -70,19 +70,41 @@
 // - B4/B5 are B1/B2 on general geometry (box topology, arbitrary node
 //   positions): the element's 8 corner coordinates are read from a
 //   coordinate lattice x in the same layout, and each Gauss point's
-//   Jacobian, its inverse and determinant are computed in registers, as
-//   _geom_gp does on the TPU; no per-element geometry table is stored
-//   (an (E, 8, 8, 3) table of gradients would be 290 MB at n=72).  The
-//   cartesian gradients G_a = Jinv^T dN_a are never formed either: the
-//   displacement gradient is H = Hhat Jinv with the reference gradient
-//   Hhat = sum_a u_a dN_a^T, and the element vector is accumulated as
-//   fe_a += wdet (P Jinv^T) dN_a, which keeps 24 values of G out of the
-//   registers.  Geometry adds ~30% to the flops of B1/B2; they stay compute
-//   bound.  B4 has a mass-only mode (the consistent mass of the general
-//   mesh, which needs only det J: no cofactor, no inverse) and B5 a linear
-//   mode (u = 0, no u read) that is the exact-geometry GMG level operator.
-//   The hex8 dN, weight and N tables sit in shared
-//   memory, loaded from a device pointer.
+//   Jacobian and determinant are computed in registers, as _geom_gp does on
+//   the TPU; no per-element geometry table is stored (an (E, 8, 8, 3) table
+//   of gradients would be 290 MB at n=72).  B4 forms Jinv and works
+//   against the 8 corners (force_gen_element), as B5 did until it was
+//   redesigned; B4 has a mass-only mode (the consistent mass of the general
+//   mesh, which needs only det J: no cofactor, no inverse).
+// - B5 runs 750 times per GMG level in its linear mode (u = 0, no u read:
+//   the exact-geometry level operator) and in every CG iteration with the
+//   Neo-Hooke tangent and the mass.  Its dense first pass did 5,008 flops
+//   per element in the linear mode and 12,936 with the mass, limited by its
+//   instruction rate (210 registers with the mass).  Now it works by the 12
+//   edges of the element, on one edge table of the reference gradients dN
+//   built in the block prologue (lattice_common.cuh): J, Hhat(v) and Hhat(u)
+//   are 36 FMAs each on the edge differences of x, v and u, which stay in
+//   registers through the Gauss loop with 36 edge sums; the inverse never
+//   forms (wdet P Jinv^T = w P cof(J), the one division per Gauss point on
+//   the weight); the Neo-Hooke tangent is taken in deformation-gradient form
+//   as B2 takes it; the mass keeps det J of the 8 Gauss points in registers
+//   and reads v's corners again after the loop.  3,088 flops per element in
+//   the linear mode, 6,724 with the mass.  At most 128 registers in the
+//   linear mode (4 blocks per SM) and 168 with u (3 blocks): the compiler's
+//   own 154 and 212-221 are 12% and 7-8% slower.  On the coarse GMG levels,
+//   with fewer than 72 elements per SM (n=18: 44 on 132 SMs), the time
+//   is one thread's chain of 8 Gauss points plus the launch floor: there the
+//   linear mode takes 8 lanes per element, one Gauss point each, and sums
+//   each node's 3 values from the lanes' results in shared memory in a fixed
+//   order (tangent_gen_gp_kernel).  On an H100 80GB HBM3 at 700 W (float32,
+//   a CUDA graph of calls, with the gather; tools/b5_variants.py): linear
+//   mode 0.0570-0.0572 ms at n=72 against 0.0725-0.0727 for the first pass,
+//   11.0 / 7.4-7.5 / 6.3-6.4 us at n=36 / 18 / 9 against 13.2-13.3 /
+//   9.3-9.4 / 8.5; Neo-Hooke with the mass 0.1086-0.1094 ms against
+//   0.1696-0.1707.  The gather takes 0.015 ms of the 0.057 at n=72 and
+//   3.1-3.5 us on the coarse levels, where each launch has a floor.
+//   The hex8 dN, weight and N tables sit in shared memory, loaded from a
+//   device pointer.
 //
 // Each extern "C" entry point launches on the caller's stream, never
 // synchronises, allocates nothing and returns cudaGetLastError() after its
@@ -105,6 +127,17 @@ constexpr int kGatherThreads = 256;
 // compiler's own choice, 155 in float32, leaves 3 and is slower:
 // tools/b2_variants.py)
 constexpr int kTangentMinBlocks = 4;
+// B5: at least 4 blocks of 128 threads per SM in the linear mode (at most
+// 128 registers; the compiler's 154 are 12% slower at n=72) and 3 with u
+// (at most 168; the compiler's 212-221 and the cap of 128 are 7-10%
+// slower); the linear mode goes by Gauss points while there are fewer than
+// 72 elements per SM: on an H100 80GB HBM3 at 700 W (tools/b5_variants.py,
+// by a CUDA graph of calls with the gather) it wins at 61 and 70 (8.08-8.10
+// against 8.32-8.34 us, 8.54-8.56 against 8.59-8.61) and loses at 81, 92
+// and 105 (8.68 against 8.59-8.60 us, 9.01-9.03 against 8.81-8.82,
+// 9.38-9.39 against 8.69-8.72)
+constexpr int tangent_gen_min_blocks(int model) { return model == kLinear ? 4 : 3; }
+constexpr int kGpSwitchPerSm = 72;
 
 struct Dims {
   int nx, ny, nz;      // real elements per axis
@@ -448,10 +481,11 @@ tangent_elem_kernel(const T* __restrict__ u, const T* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// B4 / B5 element pass on general geometry: one thread per real element; the
-// Gauss loops (force_gen_element, tangent_gen_element) are shared with the
-// element-batch kernels of solid_kernels.cu through lattice_common.cuh
-// (shared tables: s.G holds the reference gradients dN[g][a][j], not G)
+// B4 / B5 element pass on general geometry: one thread per real element (B5's
+// linear mode on few elements: one lane per Gauss point).  B4's Gauss loop
+// force_gen_element is shared with the element-batch kernels of
+// solid_kernels.cu through lattice_common.cuh (shared tables: s.G holds the
+// reference gradients dN[g][a][j], not G); B5's edge tables come from dN.
 // ---------------------------------------------------------------------------
 
 // model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff; stiff = 0 skips the force
@@ -473,23 +507,96 @@ force_gen_elem_kernel(const T* __restrict__ x, const T* __restrict__ u,
   store_fe(fe, e, d.E, scratch);
 }
 
-// kLinear: u = 0 (u is not read)
-template <typename T, bool kLinear>
-__global__ void __launch_bounds__(kElemThreads)
-tangent_gen_elem_kernel(const T* __restrict__ x, const T* __restrict__ u,
+// B5 by the 12 edges (lattice_common.cuh): one thread per element holds the
+// edge differences of x, v and (unless kLinear) u and 36 edge sums through
+// the Gauss loop; with kMass the 8 values det J_g too, and v's corners are
+// read again for the consistent mass after the loop.
+template <typename T, int kModel, bool kMass, int kMinBlocks>
+__global__ void __launch_bounds__(kElemThreads, kMinBlocks)
+tangent_gen_edge_kernel(const T* __restrict__ x, const T* __restrict__ u,
                         const T* __restrict__ v, const T* __restrict__ dNg,
                         const T* __restrict__ wg, const T* __restrict__ Ng, T lam,
-                        T mu, int model, T mcoef, Dims d, T* __restrict__ scratch) {
-  __shared__ GeomShared<T> s;
-  load_geom(s, dNg, wg, Ng);
+                        T mu, T mcoef, Dims d, T* __restrict__ scratch) {
+  __shared__ GenEdgeShared<T> s;
+  load_gen_edge_tables(s, dNg, wg, Ng);
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= d.E) return;
-  T xe[8][3], ue[8][3], ve[8][3], fe[8][3];
-  load_corners(x, d, e, xe);
-  if constexpr (!kLinear) load_corners(u, d, e, ue);
-  load_corners(v, d, e, ve);
-  tangent_gen_element<T, kLinear>(xe, ue, ve, s, lam, mu, model, mcoef, fe);
+  T dx[3][4][3], du[3][4][3], dv[3][4][3], R[3][4][3], c[8];
+  {
+    T xe[8][3];
+    load_corners(x, d, e, xe);
+    edge_diff(xe, dx);
+    if constexpr (kModel != kLinear) {
+      load_corners(u, d, e, xe);
+      edge_diff(xe, du);
+    }
+    load_corners(v, d, e, xe);
+    edge_diff(xe, dv);
+  }
+  tangent_gen_edge_element<T, kModel, kMass>(dx, du, dv, s, lam, mu, R, c);
+  T fe[8][3];
+  zero_fe(fe);
+  if constexpr (kMass) {
+    T ve[8][3];
+    load_corners(v, d, e, ve);
+    mass_gen(ve, s, c, mcoef, fe);
+  }
+  edges_to_nodes(R, fe);
   store_fe(fe, e, d.E, scratch);
+}
+
+// B5's linear mode mapped by Gauss points, for the coarse GMG levels, where
+// one thread per element leaves the card nearly empty and the kernel is one
+// thread's chain of 8 Gauss points: 8 lanes of a warp take one element, one
+// Gauss point each, and write their Q (tangent_gen_gp) to shared memory;
+// after a __syncwarp lane a sums the 3 values of node a,
+// fe[a][i] = sum_g sum_j Q_g[i][j] dN[g][a][j], in a fixed order.
+constexpr int kGpElems = kElemThreads / 8;  // elements per block
+
+template <typename T>
+__global__ void __launch_bounds__(kElemThreads)
+tangent_gen_gp_kernel(const T* __restrict__ x, const T* __restrict__ v,
+                      const T* __restrict__ dNg, const T* __restrict__ wg, T lam,
+                      T mu, Dims d, T* __restrict__ scratch) {
+  __shared__ GenEdgeShared<T> s;
+  __shared__ T Qs[kGpElems][8][9];
+  load_gen_edge_tables(s, dNg, wg, (const T*)nullptr);
+  const int le = threadIdx.x >> 3, g = threadIdx.x & 7;
+  const long long e = (long long)blockIdx.x * kGpElems + le;
+  const bool live = e < d.E;
+  if (live) {
+    T dx[3][4][3], dv[3][4][3], J[3][3], Q[3][3];
+    {
+      T xe[8][3];
+      load_corners(x, d, e, xe);
+      edge_diff(xe, dx);
+      load_corners(v, d, e, xe);
+      edge_diff(xe, dv);
+    }
+    grad_edges(dx, s.Ge[g], J);
+    tangent_gen_gp<T, kLinear>(J, dv, dv, s.Ge[g], s.w[g], lam, mu, Q);  // no u
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) Qs[le][g][i * 3 + j] = Q[i][j];
+  }
+  __syncwarp();
+  if (!live) return;
+  const int a = g;  // this lane's node
+  T f0 = T(0), f1 = T(0), f2 = T(0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int side = j == 0 ? ox(a) : j == 1 ? oy(a) : oz(a);
+      const T gj = side ? s.Ge[q][j][node_edge(a, j)] : -s.Ge[q][j][node_edge(a, j)];
+      f0 += Qs[le][q][j] * gj;
+      f1 += Qs[le][q][3 + j] * gj;
+      f2 += Qs[le][q][6 + j] * gj;
+    }
+  scratch[(a * 3 + 0) * d.E + e] = f0;
+  scratch[(a * 3 + 1) * d.E + e] = f1;
+  scratch[(a * 3 + 2) * d.E + e] = f2;
 }
 
 // ---------------------------------------------------------------------------
@@ -580,6 +687,35 @@ int force_gen(const T* x, const T* u, const T* dN, const T* w, const T* N, doubl
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kModel>
+void launch_tangent_gen_edge(const T* x, const T* u, const T* v, const T* dN,
+                             const T* w, const T* N, T lam, T mu, T mcoef,
+                             const Dims& d, T* scratch, cudaStream_t st) {
+  const unsigned int blocks = blocks_for(d.E, kElemThreads);
+  if (mcoef != T(0))
+    tangent_gen_edge_kernel<T, kModel, true, tangent_gen_min_blocks(kModel)>
+        <<<blocks, kElemThreads, 0, st>>>(x, u, v, dN, w, N, lam, mu, mcoef, d,
+                                          scratch);
+  else
+    tangent_gen_edge_kernel<T, kModel, false, tangent_gen_min_blocks(kModel)>
+        <<<blocks, kElemThreads, 0, st>>>(x, u, v, dN, w, N, lam, mu, mcoef, d,
+                                          scratch);
+}
+
+// The linear mode without the mass goes by Gauss points while the elements
+// are fewer than kGpSwitchPerSm per SM of the current device (the GMG
+// levels n=18 and 9 of the jittered path, not n=36 or 72).  The SM count is
+// read on every call (a cached attribute of the runtime), so each device
+// gets its own switch; a failed query is returned as the launch's error.
+inline cudaError_t by_gauss_points(const Dims& d, bool* gp) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *gp = d.E < (long long)kGpSwitchPerSm * sms;
+  return err;
+}
+
 // u == nullptr: the linear mode (u = 0)
 template <typename T>
 int tangent_gen(const T* x, const T* u, const T* v, const T* dN, const T* w,
@@ -587,13 +723,21 @@ int tangent_gen(const T* x, const T* u, const T* v, const T* dN, const T* w,
                 T* scratch, T* out, int nx, int ny, int nz, void* stream) {
   const Dims d(nx, ny, nz);
   const cudaStream_t st = (cudaStream_t)stream;
-  const unsigned int blocks = blocks_for(d.E, kElemThreads);
-  if (u == nullptr)
-    tangent_gen_elem_kernel<T, true><<<blocks, kElemThreads, 0, st>>>(
-        x, u, v, dN, w, N, (T)lam, (T)mu, model, (T)mcoef, d, scratch);
+  const T l = (T)lam, m = (T)mu, c = (T)mcoef;
+  bool gp = false;
+  if (u == nullptr && mcoef == 0.0) {
+    const cudaError_t err = by_gauss_points(d, &gp);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (gp)
+    tangent_gen_gp_kernel<T><<<blocks_for(d.E, kGpElems), kElemThreads, 0, st>>>(
+        x, v, dN, w, l, m, d, scratch);
+  else if (u == nullptr)
+    launch_tangent_gen_edge<T, kLinear>(x, u, v, dN, w, N, l, m, c, d, scratch, st);
+  else if (model == 0)
+    launch_tangent_gen_edge<T, 0>(x, u, v, dN, w, N, l, m, c, d, scratch, st);
   else
-    tangent_gen_elem_kernel<T, false><<<blocks, kElemThreads, 0, st>>>(
-        x, u, v, dN, w, N, (T)lam, (T)mu, model, (T)mcoef, d, scratch);
+    launch_tangent_gen_edge<T, 1>(x, u, v, dN, w, N, l, m, c, d, scratch, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gather_kernel<T><<<blocks_for(d.n, kGatherThreads), kGatherThreads, 0, st>>>(

@@ -161,22 +161,48 @@ def test_force_gen_kernel_matches_twin(cuda, dtype, shape, mode):
     assert _rel(got, want) <= TOL[dtype]
 
 
+# mode -> (u scale, None for the linear mode; model; mcoef).  u of 3e-2
+# keeps det F >= 0.2 on (9, 7, 12); at 4e-2 it falls to 0.19
+# (test_torch_lattice.py::test_gpu_tangent_gen_inputs_conditioning).
+GEN_TANGENT = {"neohooke": (1e-2, "neohooke", 0.0),
+               "fused": (1e-2, "neohooke", 137.5),
+               "linear": (None, "svk", 0.0), "svk": (1e-2, "svk", 0.0),
+               "svk_fused": (1e-2, "svk", 137.5),
+               "neohooke_large": (3e-2, "neohooke", 137.5)}
+
+
+GP_SWITCH_PER_SM = 72  # lattice_kernels.cu kGpSwitchPerSm
+
+
+def _switch_shape(side):
+    """A box of 1 x GP_SWITCH_PER_SM x SMs elements, the count from which
+    B5's linear mode leaves the Gauss-point mapping, or one row of
+    GP_SWITCH_PER_SM elements fewer."""
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return (1, GP_SWITCH_PER_SM, sm - (side == "below switch"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("mode", ["neohooke", "fused", "linear"])
+@pytest.mark.parametrize(
+    "mode,shape",
+    [(m, s) for m in GEN_TANGENT for s in [(1, 1, 1)] + SHAPES]
+    # only the linear mode reaches the switch between the mappings
+    + [("linear", "below switch"), ("linear", "above switch")])
 def test_tangent_gen_kernel_matches_twin(cuda, dtype, shape, mode):
+    if isinstance(shape, str):
+        shape = _switch_shape(shape)
     spec, t, field, *_, N = _inputs(shape, dtype, cuda, 8)
     x = _coords(spec, t, 9)
     tab = (t(cells.get_cell("hex8").dN),
            t(cells.get_cell("hex8").gauss_weights), N)
     lam, mu = lame(500.0, 0.3)
-    u = None if mode == "linear" else field(1e-2)
-    mcoef = 137.5 if mode == "fused" else 0.0
+    scale, model, mcoef = GEN_TANGENT[mode]
+    u = None if scale is None else field(scale)
     v = field(1.0)
     lk.reset_launches()
-    got = lk.neo_tangent_gen(x, u, v, *tab, lam, mu, "neohooke", mcoef)
+    got = lk.neo_tangent_gen(x, u, v, *tab, lam, mu, model, mcoef)
     assert lk.launches["tangent_gen"] == 1
-    want = lat.neo_jvp_gen_ref(x, u, v, *tab, lam, mu, "neohooke", mcoef)
+    want = lat.neo_jvp_gen_ref(x, u, v, *tab, lam, mu, model, mcoef)
     assert _rel(got, want) <= TOL[dtype]
 
 

@@ -412,3 +412,209 @@ def test_gpu_tangent_inputs_conditioning(scale):
     else:
         assert float(detF.min()) < 0 and float(detF.abs().min()) < 1e-2
         assert rel32 > 1e-4
+
+
+# The algebra of the B5 element pass by edges (csrc/lattice_common.cuh:
+# edge_table_entry on dN, tangent_gen_Pd, tangent_gen_gp,
+# tangent_gen_edge_element, mass_gen, node_edge, and the reduction of
+# tangent_gen_gp_kernel in lattice_kernels.cu), mirrored in float64 against
+# the twin's own functions.
+_HEX8_CUBE = np.array([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0],
+                       [0, 0, 1], [1, 0, 1], [1, 1, 1], [0, 1, 1]], float)
+_GEN_CASES = {"linear": (None, "svk", 0.0),
+              "neohooke": (3e-2, "neohooke", 0.0),
+              "neohooke+mass": (3e-2, "neohooke", 137.5),
+              "svk+mass": (3e-2, "svk", 137.5)}
+
+
+def _jittered_elements(E, seed):
+    """Corner coordinates (8, 3, E) of jittered boxes of edges 0.2-0.5."""
+    rng = np.random.default_rng(seed)
+    Xe = (_HEX8_CUBE[None] * rng.uniform(0.2, 0.5, size=(E, 1, 3))
+          + rng.uniform(-0.04, 0.04, size=(E, 8, 3)))
+    return torch.as_tensor(Xe.transpose(1, 2, 0).copy())
+
+
+def _node_edge(a, j):
+    """lattice_common.cuh node_edge: the edge of axis j through node a."""
+    lo = a & 3
+    if j == 2:
+        return lo
+    return 2 * (a >> 2) + ((lo if lo < 2 else 3 - lo) if j == 1 else
+                           int(lo >= 2))
+
+
+def _gen_gp(J, du, dv, Ge_g, w_g, lam, mu, model):
+    """tangent_gen_gp: Q = (w / det J) Pd(H, Hhat(v) K^T) K, K = cof(J),
+    H = Hhat(u) K^T / det J; returns (Q, det J)."""
+    K = gm.cof3l(J)
+    det = torch.einsum("j...,j...->...", J[0], K[0])
+    Hd = torch.einsum("ik...,jk...->ij...",
+                      torch.einsum("jei...,je->ij...", dv, Ge_g), K)
+    if model is None:
+        Pd = (lam * gm.tr3l(Hd) * gm.eye3l(Hd)
+              + mu * (Hd + Hd.transpose(0, 1)))
+    else:
+        H = torch.einsum("ik...,jk...->ij...",
+                         torch.einsum("jei...,je->ij...", du, Ge_g), K) / det
+        Pd = (_tangent_neohooke_F(H, Hd, lam, mu) if model == "neohooke"
+              else lat._tangent_stress(H, Hd, lam, mu, model))
+    return (w_g / det) * gm.matmul3l(Pd, K), det
+
+
+def test_node_edge_inverts_edge_node():
+    for j in range(3):
+        for a in range(8):
+            side = int(HEX8_OFFSETS[a][j])
+            assert _EDGES[j][_node_edge(a, j)][side] == a
+
+
+def test_gen_edge_jacobian_gradients_and_accumulation_match_dense():
+    """J, Hhat and sum_a Q dN_a by the 12 edges of the dN table, on a set of
+    jittered elements, against the dense forms of _geom_gp."""
+    dN = torch.as_tensor(get_cell("hex8").dN)
+    Ge = _edge_table(dN)
+    xe = _jittered_elements(6, 31)
+    ve = torch.as_tensor(np.random.default_rng(32).normal(size=(8, 3, 6)))
+    Q = torch.as_tensor(np.random.default_rng(33).normal(size=(3, 3, 6)))
+    dx, dv = _edge_diff(xe), _edge_diff(ve)
+    for g in range(8):
+        _close(torch.einsum("jei...,je->ij...", dx, Ge[g]),
+               torch.einsum("ai...,aj->ij...", xe, dN[g]), rtol=1e-13)
+        _close(torch.einsum("jei...,je->ij...", dv, Ge[g]),
+               torch.einsum("ai...,aj->ij...", ve, dN[g]), rtol=1e-13)
+        _close(_edges_to_nodes(torch.einsum("ij...,je->jei...", Q, Ge[g])),
+               torch.einsum("ij...,aj->ai...", Q, dN[g]), rtol=1e-13)
+
+
+@pytest.mark.parametrize("model", [None, "neohooke", "svk"])
+def test_gen_weighted_cofactor_form_matches_inverse(model):
+    """(w / det J) Pd(H, det J Hd) cof(J) == wdet Pd(H, Hd) Jinv^T, with H
+    and Hd the cartesian gradients H = Hhat Jinv (the twin's geometry), to
+    1e-12: J by edges averages dN halves that differ by up to 3.7e-14."""
+    cell = get_cell("hex8")
+    dN, w = torch.as_tensor(cell.dN), torch.as_tensor(cell.gauss_weights)
+    lam, mu = lame(E_MOD, NUE)
+    xe = _jittered_elements(6, 34)
+    rng = np.random.default_rng(35)
+    ue, ve = (torch.as_tensor(rng.normal(size=(8, 3, 6)) * s)
+              for s in (5e-2, 1.0))
+    Ge = _edge_table(dN)
+    dx, du, dv = _edge_diff(xe), _edge_diff(ue), _edge_diff(ve)
+    for g in range(8):
+        G, wdet = lat._geom_gp(xe, dN[g], w[g])
+        H = None if model is None else torch.einsum("ai...,aj...->ij...",
+                                                    ue, G)
+        Hd = torch.einsum("ai...,aj...->ij...", ve, G)
+        Pd = lat._tangent_stress(H, Hd, lam, mu, model or "svk")
+        J = torch.einsum("ai...,aj->ij...", xe, dN[g])
+        Jinv = gm.inv3l(J, gm.det3l(J))
+        Q, det = _gen_gp(torch.einsum("jei...,je->ij...", dx, Ge[g]), du, dv,
+                         Ge[g], w[g], lam, mu, model)
+        _close(det * w[g], wdet)
+        _close(Q, wdet * torch.einsum("ik...,jk...->ij...", Pd, Jinv))
+
+
+def test_gen_mass_after_the_loop_matches_mass_gp():
+    """mass_gen with the shift register c (c[7 - g] = det J_g) ==
+    sum_g _mass_gp(ve, N_g, mcoef wdet_g)."""
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    xe = _jittered_elements(6, 36)
+    ve = torch.as_tensor(np.random.default_rng(37).normal(size=(8, 3, 6)))
+    c = [torch.zeros(6)] * 8
+    for g in range(8):
+        c = [gm.det3l(torch.einsum("ai...,aj->ij...", xe, dN[g]))] + c[:7]
+    got = sum(lat._mass_gp(ve, N[g], 137.5 * w[g] * c[7 - g])
+              for g in range(8))
+    want = sum(lat._mass_gp(ve, N[g], 137.5 * lat._geom_gp(xe, dN[g], w[g])[1])
+               for g in range(8))
+    _close(got, want, rtol=1e-13)
+
+
+def test_gauss_point_mapping_reduction_matches_dense():
+    """tangent_gen_gp_kernel's reduction: lane a sums
+    fe[a][i] = sum_g sum_j Q_g[i][j] (2 o_j(a) - 1) Ge[g][j][node_edge(a, j)]
+    over the Gauss points in order == sum_g Q_g dN_g^T."""
+    dN = torch.as_tensor(get_cell("hex8").dN)
+    Ge = _edge_table(dN)
+    Q = torch.as_tensor(np.random.default_rng(38).normal(size=(8, 3, 3, 6)))
+    fe = torch.zeros((8, 3, 6), dtype=Q.dtype)
+    for a in range(8):
+        for g in range(8):
+            for j in range(3):
+                sign = 2.0 * HEX8_OFFSETS[a][j] - 1.0
+                fe[a] += Q[g, :, j] * sign * Ge[g, j, _node_edge(a, j)]
+    _close(fe, torch.einsum("gij...,gaj->ai...", Q, dN), rtol=1e-13)
+
+
+@pytest.mark.parametrize("case", list(_GEN_CASES))
+def test_gen_edge_element_pass_matches_twin(case):
+    """The whole B5 element pass by edges on a jittered 4x3x5 box, assembled,
+    == neo_jvp_gen_ref."""
+    scale, model, mcoef = _GEN_CASES[case]
+    spec = lat.LatticeSpec(pshape=tuple(s + 1 for s in SHAPE), h=None)
+    rng = np.random.default_rng(39)
+    idx = np.stack(np.meshgrid(*[np.arange(p) for p in spec.pshape],
+                               indexing="ij"), axis=-1)
+    h = np.asarray(HI) / np.asarray(SHAPE)
+    X = idx * h + (rng.random(idx.shape) - 0.5) * 0.3 * h
+    x = _lat_t(X.reshape(-1), spec)
+    u = None if scale is None else _lat_t(_rand(spec, scale, 40), spec)
+    v = _lat_t(_rand(spec, 1.0, 41), spec)
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    lam, mu = lame(E_MOD, NUE)
+    Ge = _edge_table(dN)
+    ve = torch.stack(lat._corners(v))
+    dx, dv = _edge_diff(torch.stack(lat._corners(x))), _edge_diff(ve)
+    du = None if u is None else _edge_diff(torch.stack(lat._corners(u)))
+    R, c = torch.zeros_like(dv), [None] * 8
+    for g in range(8):
+        Q, det = _gen_gp(torch.einsum("jei...,je->ij...", dx, Ge[g]), du, dv,
+                         Ge[g], w[g], lam, mu, None if u is None else model)
+        R += torch.einsum("ij...,je->jei...", Q, Ge[g])
+        c = [det] + c[:7]
+    fe = _edges_to_nodes(R)
+    if mcoef:
+        fe += sum(lat._mass_gp(ve, N[g], mcoef * w[g] * c[7 - g])
+                  for g in range(8))
+    want = lat.neo_jvp_gen_ref(x, u, v, dN, w, N, lam, mu, model, mcoef)
+    _close(lat._assemble(fe, v), want)
+
+
+def test_gpu_tangent_gen_inputs_conditioning():
+    """The large-deformation inputs of test_torch_gpu.py's general tangent
+    test on its (9, 7, 12) box (same spacing, jitter, seeds and draw order):
+    at u = 3e-2, det F >= 0.2 and the float32 twin is within 1e-5 of the
+    float64 one, so 1e-4 can hold a kernel (at 4e-2 this box's smallest
+    det F is 0.19)."""
+    shape = (9, 7, 12)
+    spec = lat.LatticeSpec(pshape=tuple(s + 1 for s in shape),
+                           h=(0.3, 0.2, 0.4))
+    idx = np.stack(np.meshgrid(*[np.arange(p) for p in spec.pshape],
+                               indexing="ij"), axis=-1)
+    h = np.asarray(spec.h)
+    X = idx * h + (np.random.default_rng(9).random(idx.shape) - 0.5) * 0.3 * h
+    rng = np.random.default_rng(8)
+    u, v = (rng.normal(size=spec.ndof) * s for s in (3e-2, 1.0))
+    cell = get_cell("hex8")
+    lam, mu = lame(500.0, 0.3)
+    want = {}
+    for dtype in (torch.float64, torch.float32):
+        x, ul, vl = (lat.to_lattice(torch.as_tensor(a, dtype=dtype), spec)
+                     for a in (X.reshape(-1), u, v))
+        tab = (torch.as_tensor(t, dtype=dtype) for t in (
+            cell.dN, cell.gauss_weights, cell.N))
+        want[dtype] = lat.neo_jvp_gen_ref(x, ul, vl, *tab, lam, mu,
+                                          "neohooke", 137.5).double()
+    xe = torch.stack(lat._corners(_lat_t(X.reshape(-1), spec)))
+    ue = torch.stack(lat._corners(_lat_t(u, spec)))
+    detF = torch.stack([gm.det3l(H + gm.eye3l(H)) for H in (
+        torch.einsum("ai...,aj...->ij...", ue, lat._geom_gp(
+            xe, torch.as_tensor(cell.dN[g]), 1.0)[0]) for g in range(8))])
+    ref = want[torch.float64]
+    rel32 = float((want[torch.float32] - ref).abs().max() / ref.abs().max())
+    assert float(detF.min()) >= 0.2 and rel32 <= 1e-5

@@ -4,7 +4,7 @@ and time each kind of call on one CUDA GPU.
 
 Usage, from the repository root on a machine with a CUDA device and nvcc:
 
-    python tools/kernel_calls_by_level.py [flagship|jittered]
+    python tools/kernel_calls_by_level.py [flagship|jittered] [--old]
 
 Runs the path as chip_smoke.py does (n=72, float32: the initial state, one
 warm-up and 5 steps) with the wrappers of its most-called kernels wrapped in
@@ -14,10 +14,15 @@ flagship, B5 ``neo_tangent_gen`` on the jittered box (the Neo-Hooke tangent
 with the mass, and the linear mode of the GMG levels).  Then times one call
 of each kind (mode, lattice size) as a CUDA graph of 20 calls on the inputs
 it was first called with, and prints launches, time, the bound of
-chip_smoke.py and launches x (time - bound).
+chip_smoke.py and launches x (time - bound).  With ``--old`` on the
+jittered box it also builds tools/b5_variants.cu, times B5's element pass
+before the edge form ("old" of tools/b5_variants.py) on the same inputs,
+and prints its launches x (time - bound) on the dense pass's flop count
+beside the shipped B5's on both counts.
 """
 
 import collections
+import inspect
 import sys
 from pathlib import Path
 
@@ -59,7 +64,10 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    path = sys.argv[1] if len(sys.argv) > 1 else "flagship"
+    args = [a for a in sys.argv[1:] if a != "--old"]
+    path = args[0] if args else "flagship"
+    if "--old" in sys.argv[1:] and path != "jittered":
+        sys.exit("--old compares B5 on the jittered path only")
     wrapped = WRAPPED[path]
     orig = {attr: getattr(lk, attr) for attr in wrapped}
     tally, first = collections.Counter(), {}
@@ -88,7 +96,12 @@ def main():
     for attr, fn in orig.items():
         setattr(lk, attr, fn)
     print(f"{path} n={cs.FULL_N[path]} launches {cs.launches()}")
-    total = 0.0
+    lib = None
+    if "--old" in sys.argv[1:]:
+        sys.path.insert(0, str(ROOT / "tools"))
+        import b5_variants as b5
+        lib = b5.build(report=False)
+    total = collections.Counter()
     for kind in sorted(tally, key=lambda c: (c[0], c[1], -c[2])):
         attr, mode, n = kind
         key, _, n_args = wrapped[attr]
@@ -99,12 +112,30 @@ def main():
         tensors = tuple(a for a in args[:n_args] if torch.is_tensor(a))
         bound, by = cs._bound(key, mode, n, tensors + (out,))
         excess = tally[kind] * (ms - bound)
-        total += excess
-        print(f"{attr} {mode:14s} n={n:2d}: {tally[kind]:5d} "
-              f"launches, {ms:.4f} ms per call (graph), bound {bound:.5f} ms "
-              f"({by}), launches x (time - bound) {excess:.1f} ms",
-              flush=True)
-    print(f"launches x (time - bound), all: {total:.1f} ms")
+        total["new"] += excess
+        msg = (f"{attr} {mode:14s} n={n:2d}: {tally[kind]:5d} "
+               f"launches, {ms:.4f} ms per call (graph), bound {bound:.5f} ms "
+               f"({by}), launches x (time - bound) {excess:.1f} ms")
+        if lib is not None:
+            a = inspect.signature(fn).bind(*args, **kwargs)
+            a.apply_defaults()
+            a = a.arguments
+            old = cs._time_graph(b5.launcher(
+                lib, "old", "full", a["x"], a["u"], a["v"],
+                (a["dN"], a["w"], a["N"]), a["lam"], a["mu"], a["model"],
+                a["mcoef"]))
+            old_bound = b5.old_bound(mode, n, tensors + (out,))
+            total["on the dense count's bound"] += \
+                tally[kind] * (ms - old_bound)
+            total["old on the dense count's bound"] += \
+                tally[kind] * (old - old_bound)
+            msg += (f"; on the dense count's bound {old_bound:.5f} ms: "
+                    f"{tally[kind] * (ms - old_bound):.1f} ms; the old "
+                    f"element pass {old:.4f} ms, "
+                    f"{tally[kind] * (old - old_bound):.1f} ms")
+        print(msg, flush=True)
+    print("launches x (time - bound), all: " + ", ".join(
+        f"{k} {v:.1f} ms" for k, v in total.items()))
 
 
 if __name__ == "__main__":
