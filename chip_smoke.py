@@ -88,16 +88,11 @@ PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # code with an FMA as 2 and log1p or a division as 1.  Per Gauss point:
 # grad 144, strain_A 63, Neo-Hooke stress 139, SVK stress 16, F = I + H 3,
 # mm 45, accum 168, strain_A_dual 117, Neo-Hooke dual stress 300, SVK dual
-# 16, the Pd sum 9, consistent mass 106; general geometry adds the Jacobian
-# (grad 144, cof3 27, det3 14, inverse 10, wdet 1: 196), H = Hhat Jinv (mm
-# 45 per gradient) and P Jinv^T (mm 45); the mass-only mode needs only
-# grad, det3 and wdet.  The lattice kernels' gather pass adds 24 adds per
-# element; the element-batch kernels B6/B7 have no such pass.
+# 16, the Pd sum 9, consistent mass 106.  The lattice kernels' gather pass
+# adds 24 adds per element; the element-batch kernels B6/B7 have no such
+# pass.
 _GP = {"force neohooke": 144 + 63 + 139 + 3 + 45 + 168,
-       "force svk": 144 + 63 + 16 + 3 + 45 + 168,
-       "tangent neohooke": 2 * 144 + 63 + 117 + 139 + 300 + 3 + 2 * 45 + 9
-       + 168}
-_GEN = 196 + 45 + 45  # Jacobian, H = Hhat Jinv, P Jinv^T
+       "force svk": 144 + 63 + 16 + 3 + 45 + 168}
 # B2 works by the 12 edges of an element (tangent_elem_kernel): per Gauss
 # point grad_edges 2 x 72 (4 FMAs per entry), the Neo-Hooke tangent in
 # deformation-gradient form 234 (tr H 2, tr H^2 18, det3 14, delta 5, lnJ
@@ -121,24 +116,44 @@ _B2_GP = 144 + 234 + 81
 # linear).
 _B5_GP = 72 + 27 + 5 + 1 + 72 + 45 + 45 + 10 + 72
 _B5_LIN, _B5_NEO = _B5_GP + 16, _B5_GP + 72 + 54 + 234
+# SVK's tangent_stress: strain_A 63, its dual 117, two SVK stresses 32, F 3,
+# Hd S and F Sd 90, the sum 9
+_B5_SVK = _B5_GP + 72 + 54 + 63 + 117 + 2 * 16 + 3 + 2 * 45 + 9
+# B4 works by the 12 edges too (force_gen_edge_kernel): per Gauss point J
+# by grad_edges 72, K = cof(J) 27, det J from K's first row 5, 1 / det J 1,
+# Hhat(u) by grad_edges 72, H = Hhat K^T / det J 54, Q = P K 45 and
+# accum_edges with the weight 81 (357 in all); then P: Neo-Hooke in
+# deformation-gradient form 130 (stress_neohooke_F: cof(H) 27, tr H 2, d2 8,
+# delta 1, lnJ 4, 1 / det F 2, lam lnJ 1, K_F 19, the d2 I + H^T - cof H
+# entries 12, 6 per entry of P), or SVK 127 (strain_A 63, stress 16, F 3,
+# F S 45).  Per element the edge differences 36 per field (x and u),
+# edges_to_nodes 72, the gather's 24 and, with the mass, 106 per Gauss point
+# after the loop.  The mass-only mode needs per Gauss point J 72 and det3 14,
+# and x's edge differences alone.  No code in the repo computes this
+# operator with less, so it bounds B4's first pass and B6 too (848 flops per
+# Gauss point and 6,808 per element in B4's first, dense count).
+_B4_GP = 72 + 27 + 5 + 1 + 72 + 54 + 45 + 81
+_B4_NEO, _B4_SVK = _B4_GP + 130, _B4_GP + 127
 ELEM_FLOPS = {
     ("force", "neohooke"): 8 * _GP["force neohooke"] + 24,
     ("force", "svk"): 8 * _GP["force svk"] + 24,
     ("tangent", "neohooke"): 8 * _B2_GP + 72 + 72 + 24,
     ("tangent", "neohooke+mass"): 8 * _B2_GP + 72 + 72 + 384 + 24,
-    ("force_gen", "neohooke"): 8 * (_GP["force neohooke"] + _GEN) + 24,
-    ("force_gen", "svk"): 8 * (_GP["force svk"] + _GEN) + 24,
-    ("force_gen", "mass-only"): 8 * (144 + 14 + 1 + 106) + 24,
-    ("force_gen", "neohooke+mass"): 8 * (_GP["force neohooke"] + _GEN + 106)
-    + 24,
+    ("force_gen", "neohooke"): 8 * _B4_NEO + 2 * 36 + 72 + 24,
+    ("force_gen", "svk"): 8 * _B4_SVK + 2 * 36 + 72 + 24,
+    ("force_gen", "mass-only"): 8 * (72 + 14 + 106) + 36 + 24,
+    ("force_gen", "neohooke+mass"): 8 * (_B4_NEO + 106) + 2 * 36 + 72 + 24,
     ("tangent_gen", "neohooke"): 8 * _B5_NEO + 3 * 36 + 72 + 24,
     ("tangent_gen", "neohooke+mass"): 8 * (_B5_NEO + 106) + 3 * 36 + 72 + 24,
     ("tangent_gen", "linear (u=0)"): 8 * _B5_LIN + 2 * 36 + 72 + 24,
 }
-# B6/B7: B4/B5 on an element batch, without the gather pass
+# B6/B7: B4/B5 on an element batch, without the gather pass (B6 runs the
+# dense pass, but B4's edge form bounds its operator)
 for _kind in ("neohooke", "svk", "mass-only", "neohooke+mass"):
     ELEM_FLOPS[("solid_force", _kind)] = ELEM_FLOPS[("force_gen", _kind)] - 24
-for _kind in ("neohooke", "neohooke+mass"):
+for _kind, _gp in (("svk", _B5_SVK), ("svk+mass", _B5_SVK + 106)):
+    ELEM_FLOPS[("tangent_gen", _kind)] = 8 * _gp + 3 * 36 + 72 + 24
+for _kind in ("neohooke", "neohooke+mass", "svk", "svk+mass"):
     ELEM_FLOPS[("solid_tangent", _kind)] = \
         ELEM_FLOPS[("tangent_gen", _kind)] - 24
 
@@ -201,6 +216,10 @@ def phase_build():
                     flag = ", " + ("Neo-Hooke", "SVK", "linear")[int(args[0])]
                     if len(args) > 1:
                         flag += ", mass" if args[1] == "1" else ""
+                elif "force_gen" in m.group(1) and args:  # model, stiff, mass
+                    flag = (", " + ("Neo-Hooke", "SVK")[int(args[0])]
+                            + ", mass" * (args[2] == "1")
+                            if args[1] == "1" else ", mass-only")
                 name = (f"{m.group(1)}<"
                         f"{'float' if m.group(2) == 'f' else 'double'}{flag}>")
             elif "spill stores" in line:
@@ -340,12 +359,15 @@ def _solid_cases(n, dtype, rng, lam, mu, mcoef):
             lambda m=model, c=mc, s=stiff: sops.hex8_force_ref(X, u, lam, mu,
                                                                m, c, s),
             (X, u)))
-    for case, mc in (("neohooke", 0.0), ("neohooke+mass", mcoef)):
+    for case, model, mc in (("neohooke", "neohooke", 0.0),
+                            ("neohooke+mass", "neohooke", mcoef),
+                            ("svk", "svk", 0.0),
+                            ("svk+mass", "svk", mcoef)):
         cases.append((
             "solid_tangent", case,
-            lambda c=mc: sk.hex8_tangent(X, u, v, lam, mu, "neohooke", c),
-            lambda c=mc: sops.hex8_tangent_ref(X, u, v, lam, mu, "neohooke",
-                                               c),
+            lambda m=model, c=mc: sk.hex8_tangent(X, u, v, lam, mu, m, c),
+            lambda m=model, c=mc: sops.hex8_tangent_ref(X, u, v, lam, mu, m,
+                                                        c),
             (X, u, v)))
     return cases
 

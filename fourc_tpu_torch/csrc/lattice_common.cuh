@@ -6,9 +6,12 @@
 // tangent kernel shares, the one-element-per-thread helpers (tables in
 // shared memory, gradients, accumulation), the same by the 12 edges of an
 // element with the Neo-Hooke tangent in deformation-gradient form (B2), the
-// general-geometry Gauss loops of one element against its 8 corners
-// (force_gen_element for B4 and B6, tangent_gen_element for B7) and the
-// general-geometry tangent by the 12 edges (B5).
+// general-geometry force Gauss loop of one element against its 8 corners
+// (force_gen_element, B6's), the general-geometry tangent by the 12 edges
+// (B5 and B7) and the general-geometry force by the 12 edges with the
+// Neo-Hooke stress in deformation-gradient form (B4).  tangent_gen_element
+// is the dense tangent pass before the edge form, which no product kernel
+// runs; the tools that time the old passes build on it.
 // Everything lives in registers; the index loops are fully unrolled so the
 // 3x3 arrays never touch local memory.
 //
@@ -520,7 +523,8 @@ __device__ __forceinline__ void accum_gen(const T P[3][3], const T Jinv[3][3],
 
 // fe = sum_g wdet_g P(F_g) G_g (when stiff) + mcoef sum_g wdet_g N N^T ue
 // (when mcoef != 0); model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff.  The
-// mass needs only det J: no cofactor, no inverse.
+// mass needs only det J: no cofactor, no inverse.  B6's pass, and B4's
+// before its edge form (force_gen_edge_element).
 template <typename T>
 __device__ __forceinline__ void force_gen_element(const T xe[8][3], const T ue[8][3],
                                                   const GeomShared<T>& s, T lam, T mu,
@@ -558,7 +562,9 @@ __device__ __forceinline__ void force_gen_element(const T xe[8][3], const T ue[8
 
 // fe = K(ue) ve + mcoef sum_g wdet_g N N^T ve.  kLinear: u = 0 (ue is not
 // read), where every law is linear elasticity,
-// Pd = lam tr(Hd) I + mu (Hd + Hd^T)
+// Pd = lam tr(Hd) I + mu (Hd + Hd^T).  The dense pass of B5 and B7 before
+// their edge form (tangent_gen_edge_element); no product kernel calls it,
+// tools/b5_variants.cu and tools/b7_b4_variants.cu time it as "old".
 template <typename T, bool kLinear>
 __device__ __forceinline__ void tangent_gen_element(const T xe[8][3], const T ue[8][3],
                                                     const T ve[8][3],
@@ -727,6 +733,99 @@ __device__ __forceinline__ void mass_gen(const T ve[8][3], const GenEdgeShared<T
                                          const T c[8], T mcoef, T fe[8][3]) {
 #pragma unroll
   for (int g = 0; g < 8; ++g) mass_accum(ve, s.N[g], mcoef * s.w[g] * c[7 - g], fe);
+}
+
+// The Neo-Hooke first Piola stress in deformation-gradient form, free of
+// cancellation.  The law of stress_neohooke is P = F S
+// = mu (F - F^-T) + lam lnJ F^-T, where F and F^-T both lie near I at small
+// strain: in float32 their difference loses the digits of H.  cof is
+// quadratic, so K_F = cof(I + H) = (1 + tr H) I - H^T + cof(H) exactly, and
+// with det F = 1 + delta, delta = tr H + d2, d2 = tr cof(H) + det H
+// (= ((tr H)^2 - tr(H^2)) / 2 + det H, the delta of tangent_neohooke_F),
+//   I - F^-T = ((1 + delta) I - K_F) / det F = (d2 I + H^T - cof(H)) / det F,
+//   P = mu H + (mu (d2 I + H^T - cof(H)) + lam lnJ K_F) / det F,
+// lnJ = log1p(delta (2 + delta)) / 2 = log(det C) / 2 as the reference has
+// it (det F < 0 gives its value).  Every term is of the size of H.
+template <typename T>
+__device__ __forceinline__ void stress_neohooke_F(const T H[3][3], T lam, T mu,
+                                                  T P[3][3]) {
+  T cH[3][3];
+  cof3(H, cH);
+  const T trH = H[0][0] + H[1][1] + H[2][2];
+  const T d2 = cH[0][0] + cH[1][1] + cH[2][2] + H[0][0] * cH[0][0] +
+               H[0][1] * cH[0][1] + H[0][2] * cH[0][2];
+  const T delta = trH + d2;
+  const T lnJ = T(0.5) * log1p_t(delta * (T(2) + delta));
+  const T r = T(1) / (T(1) + delta);
+  const T ll = lam * lnJ;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const T KF = (i == j ? T(1) + trH : T(0)) - H[j][i] + cH[i][j];
+      const T X = (i == j ? d2 : T(0)) + H[j][i] - cH[i][j];
+      P[i][j] = mu * H[i][j] + r * (mu * X + ll * KF);
+    }
+}
+
+// The general-geometry force Gauss loop of one element by its edges (B4):
+// per Gauss point J = grad_edges(dx), K = cof(J), det J from K's first row,
+// H = Hhat(u) K^T / det J, P(H), and the edge sums gather Q = w P K
+// (wdet P Jinv^T = w P cof(J)), so no inverse and no wdet forms.  kModel:
+// 0 = Neo-Hooke (stress_neohooke_F), 1 = St. Venant-Kirchhoff (P = F S).
+// kStiff = false is the mass-only mode: only det J, R and du are not
+// touched.  With kMass, c[7 - g] = det J_g after the loop, as in
+// tangent_gen_edge_element.
+template <typename T, int kModel, bool kStiff, bool kMass>
+__device__ __forceinline__ void force_gen_edge_element(const T dx[3][4][3],
+                                                       const T du[3][4][3],
+                                                       const GenEdgeShared<T>& s,
+                                                       T lam, T mu, T R[3][4][3],
+                                                       T c[8]) {
+  if constexpr (kStiff) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) R[j][q][0] = R[j][q][1] = R[j][q][2] = T(0);
+  }
+#pragma unroll 1
+  for (int g = 0; g < 8; ++g) {
+    T J[3][3], det;
+    grad_edges(dx, s.Ge[g], J);
+    if constexpr (kStiff) {
+      T K[3][3], Hh[3][3], H[3][3], P[3][3], Q[3][3];
+      cof3(J, K);
+      det = J[0][0] * K[0][0] + J[0][1] * K[0][1] + J[0][2] * K[0][2];
+      const T r = T(1) / det;
+      grad_edges(du, s.Ge[g], Hh);
+      mm_abt(Hh, K, H);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) H[i][j] *= r;
+      if constexpr (kModel == 0) {
+        stress_neohooke_F(H, lam, mu, P);
+      } else {
+        T A[3][3], S[3][3], F[3][3];
+        strain_A(H, A);
+        stress_svk(A, lam, mu, S);
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
+        mm(F, S, P);
+      }
+      mm(P, K, Q);
+      accum_edges(Q, s.Ge[g], s.w[g], R);
+    } else {
+      det = det3(J);
+    }
+    if constexpr (kMass) {
+#pragma unroll
+      for (int k = 7; k > 0; --k) c[k] = c[k - 1];
+      c[0] = det;
+    }
+  }
 }
 
 // The edge of axis j through node a: node a is edge_node(j, a's edge,

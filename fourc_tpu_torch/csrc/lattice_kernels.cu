@@ -72,10 +72,28 @@
 //   coordinate lattice x in the same layout, and each Gauss point's
 //   Jacobian and determinant are computed in registers, as _geom_gp does on
 //   the TPU; no per-element geometry table is stored (an (E, 8, 8, 3) table
-//   of gradients would be 290 MB at n=72).  B4 forms Jinv and works
-//   against the 8 corners (force_gen_element), as B5 did until it was
-//   redesigned; B4 has a mass-only mode (the consistent mass of the general
-//   mesh, which needs only det J: no cofactor, no inverse).
+//   of gradients would be 290 MB at n=72).  B4 has a mass-only mode (the
+//   consistent mass of the general mesh, which needs only det J: no
+//   cofactor, no inverse).
+// - B4's first pass formed J^-1 and worked against the 8 corners
+//   (force_gen_element, B6's pass): 6,808 flops per element (848 per Gauss
+//   point), 0.1009 ms at n=72 on an H100 80GB HBM3 at 700 W.  Now it works
+//   by the 12 edges on B5's edge table of dN (force_gen_edge_element in
+//   lattice_common.cuh): J and Hhat(u) are grad_edges on the edge
+//   differences of x and u, no inverse forms (H = Hhat cof(J)^T / det J and
+//   the edge sums gather w P cof(J)), and the Neo-Hooke stress is taken in
+//   deformation-gradient form without cancellation (stress_neohooke_F:
+//   P = mu H + (mu (d2 I + H^T - cof H) + lam lnJ cof(F)) / det F; the
+//   plain mu (F - F^-T) would lose the digits of H in float32).  The mass
+//   keeps det J of the 8 Gauss points in registers and reads u's corners
+//   again after the loop, as B5 does with v.  4,064 flops per element
+//   with the gather (Neo-Hooke; 1,596 mass-only), 0.0226 ms of float32 peak
+//   at n=72.  Templated on the model, the force (stiff) and the mass.  On
+//   an H100 80GB HBM3 at 700 W (float32, a CUDA graph of calls, with the
+//   gather; tools/b7_b4_variants.py): Neo-Hooke 0.0773-0.0776 ms against
+//   0.1004-0.1010 for the first pass in the same run, SVK 0.0660-0.0663
+//   against 0.0854-0.0857, mass-only 0.0449-0.0451 against 0.0550-0.0556.
+//   The element pass alone takes 0.0585-0.0588 ms with Neo-Hooke.
 // - B5 runs 750 times per GMG level in its linear mode (u = 0, no u read:
 //   the exact-geometry level operator) and in every CG iteration with the
 //   Neo-Hooke tangent and the mass.  Its dense first pass did 5,008 flops
@@ -137,6 +155,15 @@ constexpr int kTangentMinBlocks = 4;
 // and 105 (8.68 against 8.59-8.60 us, 9.01-9.03 against 8.81-8.82,
 // 9.38-9.39 against 8.69-8.72)
 constexpr int tangent_gen_min_blocks(int model) { return model == kLinear ? 4 : 3; }
+// B4: at least 4 blocks of 128 threads per SM (at most 128 registers, 36-176
+// B spilled in float32).  On an H100 80GB HBM3 at 700 W at n=72
+// (tools/b7_b4_variants.py, by a CUDA graph of calls with the gather) it
+// beats at most 168 (156-168 registers) and the compiler's own 156-196 by
+// 2.6-7.7% with the force: Neo-Hooke 77.3-77.6 against 79.3-79.6 and
+// 81.6-81.8 us, SVK 66.0-66.3 against 71.2-71.5 and 70.7-70.9; in the
+// mass-only mode (89-95 registers) it is 1.3% slower than at most 168,
+// 44.9-45.1 against 44.3-44.5 us, which a second cap is not worth.
+constexpr int kForceGenMinBlocks = 4;
 constexpr int kGpSwitchPerSm = 72;
 
 struct Dims {
@@ -481,29 +508,43 @@ tangent_elem_kernel(const T* __restrict__ u, const T* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// B4 / B5 element pass on general geometry: one thread per real element (B5's
-// linear mode on few elements: one lane per Gauss point).  B4's Gauss loop
-// force_gen_element is shared with the element-batch kernels of
-// solid_kernels.cu through lattice_common.cuh (shared tables: s.G holds the
-// reference gradients dN[g][a][j], not G); B5's edge tables come from dN.
+// B4 / B5 element pass on general geometry by the 12 edges, one thread per
+// real element (B5's linear mode on few elements: one lane per Gauss point),
+// on one edge table of the reference gradients dN in shared memory
 // ---------------------------------------------------------------------------
 
-// model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff; stiff = 0 skips the force
-// (mass-only mode); mcoef = 0 skips the mass
-template <typename T>
-__global__ void __launch_bounds__(kElemThreads)
-force_gen_elem_kernel(const T* __restrict__ x, const T* __restrict__ u,
+// B4: the edge differences of x and (kStiff) u and 36 edge sums stay in
+// registers through the Gauss loop; with kMass the 8 values det J_g too,
+// and u's corners are read again for the consistent mass after the loop.
+template <typename T, int kModel, bool kStiff, bool kMass, int kMinBlocks>
+__global__ void __launch_bounds__(kElemThreads, kMinBlocks)
+force_gen_edge_kernel(const T* __restrict__ x, const T* __restrict__ u,
                       const T* __restrict__ dNg, const T* __restrict__ wg,
-                      const T* __restrict__ Ng, T lam, T mu, int model, T mcoef,
-                      int stiff, Dims d, T* __restrict__ scratch) {
-  __shared__ GeomShared<T> s;
-  load_geom(s, dNg, wg, Ng);
+                      const T* __restrict__ Ng, T lam, T mu, T mcoef, Dims d,
+                      T* __restrict__ scratch) {
+  __shared__ GenEdgeShared<T> s;
+  load_gen_edge_tables(s, dNg, wg, kMass ? Ng : (const T*)nullptr);
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= d.E) return;
-  T xe[8][3], ue[8][3], fe[8][3];
-  load_corners(x, d, e, xe);
-  load_corners(u, d, e, ue);
-  force_gen_element(xe, ue, s, lam, mu, model, mcoef, stiff, fe);
+  T dx[3][4][3], du[3][4][3], R[3][4][3], c[8];
+  {
+    T xe[8][3];
+    load_corners(x, d, e, xe);
+    edge_diff(xe, dx);
+    if constexpr (kStiff) {
+      load_corners(u, d, e, xe);
+      edge_diff(xe, du);
+    }
+  }
+  force_gen_edge_element<T, kModel, kStiff, kMass>(dx, du, s, lam, mu, R, c);
+  T fe[8][3];
+  zero_fe(fe);
+  if constexpr (kMass) {
+    T ue[8][3];
+    load_corners(u, d, e, ue);
+    mass_gen(ue, s, c, mcoef, fe);
+  }
+  if constexpr (kStiff) edges_to_nodes(R, fe);
   store_fe(fe, e, d.E, scratch);
 }
 
@@ -672,14 +713,38 @@ int tangent(const T* u, const T* v, const T* G, const T* w, const T* N, double l
   return (int)cudaGetLastError();
 }
 
+// B4's instantiation from the host's ints: stiff = 0 is the mass-only mode
+// (mcoef = 0 there gives zeros, as before), model 0 Neo-Hooke, else SVK.
+template <typename T, int kMinBlocks>
+void launch_force_gen_edge(const T* x, const T* u, const T* dN, const T* w,
+                           const T* N, T lam, T mu, int model, T mcoef, int stiff,
+                           const Dims& d, T* scratch, cudaStream_t st) {
+  const unsigned int blocks = blocks_for(d.E, kElemThreads);
+  const bool mass = mcoef != T(0);
+#define FOURC_FORCE_GEN(M, S, MS)                                              \
+  force_gen_edge_kernel<T, M, S, MS, kMinBlocks><<<blocks, kElemThreads, 0, st>>>( \
+      x, u, dN, w, N, lam, mu, mcoef, d, scratch)
+  if (!stiff)
+    FOURC_FORCE_GEN(0, false, true);
+  else if (model == 0 && mass)
+    FOURC_FORCE_GEN(0, true, true);
+  else if (model == 0)
+    FOURC_FORCE_GEN(0, true, false);
+  else if (mass)
+    FOURC_FORCE_GEN(1, true, true);
+  else
+    FOURC_FORCE_GEN(1, true, false);
+#undef FOURC_FORCE_GEN
+}
+
 template <typename T>
 int force_gen(const T* x, const T* u, const T* dN, const T* w, const T* N, double lam,
               double mu, int model, double mcoef, int stiff, T* scratch, T* out,
               int nx, int ny, int nz, void* stream) {
   const Dims d(nx, ny, nz);
   const cudaStream_t st = (cudaStream_t)stream;
-  force_gen_elem_kernel<T><<<blocks_for(d.E, kElemThreads), kElemThreads, 0, st>>>(
-      x, u, dN, w, N, (T)lam, (T)mu, model, (T)mcoef, stiff, d, scratch);
+  launch_force_gen_edge<T, kForceGenMinBlocks>(x, u, dN, w, N, (T)lam, (T)mu, model,
+                                               (T)mcoef, stiff, d, scratch, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gather_kernel<T><<<blocks_for(d.n, kGatherThreads), kGatherThreads, 0, st>>>(

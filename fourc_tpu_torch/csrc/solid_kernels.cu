@@ -9,19 +9,34 @@
 // local node a, one column per element.  The gather u[conn] before and the
 // assembly into the nodes after are index operations of the caller.
 //
-// What bounds them on the H100 and what the design does about it: about
-// 7-12k flops per element (8 Gauss points of 3x3 algebra, Jacobians
-// included) against 288-384 bytes, compute bound in registers, like B4/B5,
-// whose Gauss loops they share (lattice_common.cuh: force_gen_element,
-// tangent_gen_element).  One thread per element; with the (24, E) layout
-// thread e reads and writes address row*E + e, so every row access of a
-// warp is one coalesced line.  E need not be a multiple of anything: the
-// last block masks its tail (the TPU kernel padded E to tiles of 512 and
-// guarded det J of the zero padding; only real elements are visited here).
-// The hex8 dN, weight and N tables sit in shared memory, loaded from device
-// pointers.  Like B4/B5, B6 can add the consistent mass of u
-// (mcoef * sum_g wdet N N^T u) or compute only that (stiff = 0, needs only
-// det J), and B7 fuses mcoef * M v into the tangent pass.
+// What bounds them on the H100 and what the design does about it: B6 runs the
+// dense Gauss loop force_gen_element of lattice_common.cuh (Jacobian, inverse
+// and gradients against the 8 corners), about 6.8k flops per element against
+// 288 bytes (X, u and the output in float32), limited by its instruction rate;
+// B4's edge form computes the same operator in 4.0k, which puts B6's bound on
+// bytes (0.0151 ms at n=56).  B7 is B5's operator on an element batch and runs
+// B5's pass by the 12 edges (tangent_gen_edge_element): the columns of X, u and
+// v become 36 edge differences each, the Gauss loop forms J, Hhat(u) and
+// Hhat(v) from them and gathers into 36 edge sums, no inverse forms, the
+// Neo-Hooke tangent is taken in deformation-gradient form, and with the mass
+// det J of the 8 Gauss points rides in registers and v's column is read again
+// after the loop.  5.9k flops per element (6.7k with the mass) against 384
+// bytes, so its bound is set by bytes (0.0201 ms at n=56).  The edge form needs
+// the element batch's local node order to be the hex8 cell order (0,0,0)
+// (1,0,0) (1,1,0) (0,1,0) (0,0,1) (1,0,1) (1,1,1) (0,1,1), the order that
+// edge_node and node_edge assume for the lattice: along every edge of axis j,
+// dN[a-][j] = -dN[a+][j].  On an H100 80GB HBM3 at 700 W (float32, n=56, a CUDA
+// graph of calls; tools/b7_b4_variants.py) B7 takes 0.0500-0.0502 ms with the
+// mass and 0.0451-0.0453 without, against 0.0873-0.0877 and 0.0834-0.0837 for
+// its first, dense pass (tangent_gen_element) in the same run.  One thread per
+// element; with the (24, E) layout thread e reads and writes address row*E + e,
+// so every row access of a warp is one coalesced line.  E need not be a multiple
+// of anything: the last block masks its tail (the TPU kernel padded E to tiles
+// of 512 and guarded det J of the zero padding; only real elements are visited
+// here).  The hex8 tables sit in shared memory, loaded from device pointers.
+// Like B4/B5, B6 can add the consistent mass of u (mcoef * sum_g wdet N N^T u)
+// or compute only that (stiff = 0, needs only det J), and B7 fuses mcoef * M v
+// into the tangent pass.
 //
 // Each extern "C" entry point launches on the caller's stream, never
 // synchronises, allocates nothing and returns cudaGetLastError() after its
@@ -62,22 +77,66 @@ solid_force_kernel(const T* __restrict__ X, const T* __restrict__ u,
   store_fe(fe, e, E, out);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kElemThreads)
+// B7: at least 3 blocks of 128 threads per SM (at most 168 registers, 72-104
+// B spilled in float32, B5's choice with u).  On an H100 80GB HBM3 at 700 W
+// at n=56 (tools/b7_b4_variants.py, by a CUDA graph of calls) it beats the
+// compiler's own 212-221 registers by 6-24% (Neo-Hooke with the mass
+// 50.0-50.2 against 53.1-53.4 us, SVK 41.9-42.1 against 52.2-52.4) and at
+// most 128 (232-264 B spilled) by 21-28%.
+constexpr int kSolidTangentMinBlocks = 3;
+
+// kModel: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff; kMass: mcoef M v too
+template <typename T, int kModel, bool kMass, int kMinBlocks>
+__global__ void __launch_bounds__(kElemThreads, kMinBlocks)
 solid_tangent_kernel(const T* __restrict__ X, const T* __restrict__ u,
                      const T* __restrict__ v, const T* __restrict__ dNg,
                      const T* __restrict__ wg, const T* __restrict__ Ng, T lam,
-                     T mu, int model, T mcoef, long long E, T* __restrict__ out) {
-  __shared__ GeomShared<T> s;
-  load_geom(s, dNg, wg, Ng);
+                     T mu, T mcoef, long long E, T* __restrict__ out) {
+  __shared__ GenEdgeShared<T> s;
+  load_gen_edge_tables(s, dNg, wg, kMass ? Ng : (const T*)nullptr);
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
-  T xe[8][3], ue[8][3], ve[8][3], fe[8][3];
-  load_rows(X, E, e, xe);
-  load_rows(u, E, e, ue);
-  load_rows(v, E, e, ve);
-  tangent_gen_element<T, false>(xe, ue, ve, s, lam, mu, model, mcoef, fe);
+  T dx[3][4][3], du[3][4][3], dv[3][4][3], R[3][4][3], c[8];
+  {
+    T xe[8][3];
+    load_rows(X, E, e, xe);
+    edge_diff(xe, dx);
+    load_rows(u, E, e, xe);
+    edge_diff(xe, du);
+    load_rows(v, E, e, xe);
+    edge_diff(xe, dv);
+  }
+  tangent_gen_edge_element<T, kModel, kMass>(dx, du, dv, s, lam, mu, R, c);
+  T fe[8][3];
+  zero_fe(fe);
+  if constexpr (kMass) {
+    T ve[8][3];
+    load_rows(v, E, e, ve);
+    mass_gen(ve, s, c, mcoef, fe);
+  }
+  edges_to_nodes(R, fe);
   store_fe(fe, e, E, out);
+}
+
+// B7's instantiation from the host's ints: model 0 Neo-Hooke, else SVK
+template <typename T, int kMinBlocks>
+void launch_solid_tangent(const T* X, const T* u, const T* v, const T* dN, const T* w,
+                          const T* N, T lam, T mu, int model, T mcoef, long long E,
+                          T* out, cudaStream_t st) {
+  const unsigned int blocks = blocks_for(E, kElemThreads);
+  const bool mass = mcoef != T(0);
+#define FOURC_SOLID_TANGENT(M, MS)                                            \
+  solid_tangent_kernel<T, M, MS, kMinBlocks><<<blocks, kElemThreads, 0, st>>>( \
+      X, u, v, dN, w, N, lam, mu, mcoef, E, out)
+  if (model == 0 && mass)
+    FOURC_SOLID_TANGENT(0, true);
+  else if (model == 0)
+    FOURC_SOLID_TANGENT(0, false);
+  else if (mass)
+    FOURC_SOLID_TANGENT(1, true);
+  else
+    FOURC_SOLID_TANGENT(1, false);
+#undef FOURC_SOLID_TANGENT
 }
 
 template <typename T>
@@ -94,9 +153,9 @@ template <typename T>
 int solid_tangent(const T* X, const T* u, const T* v, const T* dN, const T* w,
                   const T* N, double lam, double mu, int model, double mcoef,
                   long long E, T* out, void* stream) {
-  solid_tangent_kernel<T><<<blocks_for(E, kElemThreads), kElemThreads, 0,
-                            (cudaStream_t)stream>>>(
-      X, u, v, dN, w, N, (T)lam, (T)mu, model, (T)mcoef, E, out);
+  launch_solid_tangent<T, kSolidTangentMinBlocks>(X, u, v, dN, w, N, (T)lam, (T)mu,
+                                                  model, (T)mcoef, E, out,
+                                                  (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -245,7 +245,8 @@ def test_solid_force_kernel_matches_twin(cuda, dtype, E, mode):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("E", BATCHES)
 @pytest.mark.parametrize("model, mcoef", [("neohooke", 0.0),
-                                          ("neohooke", 137.5), ("svk", 0.0)])
+                                          ("neohooke", 137.5), ("svk", 0.0),
+                                          ("svk", 137.5)])
 def test_solid_tangent_kernel_matches_twin(cuda, dtype, E, model, mcoef):
     X, u, v = _batches(E, dtype, cuda, 11)
     lam, mu = lame(500.0, 0.3)

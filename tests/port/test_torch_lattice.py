@@ -30,6 +30,7 @@ from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import cuda_build
 from fourc_tpu_torch.ops import lattice as lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
+from fourc_tpu_torch.ops import solid as sops
 
 RTOL = 1e-12
 SHAPE, HI = (4, 3, 5), (1.2, 0.7, 2.0)
@@ -618,3 +619,227 @@ def test_gpu_tangent_gen_inputs_conditioning():
     ref = want[torch.float64]
     rel32 = float((want[torch.float32] - ref).abs().max() / ref.abs().max())
     assert float(detF.min()) >= 0.2 and rel32 <= 1e-5
+
+
+# The algebra of the B4 force pass by edges (csrc/lattice_common.cuh:
+# stress_neohooke_F, force_gen_edge_element, force_gen_edge_kernel in
+# lattice_kernels.cu) and of B7's element-batch tangent by edges
+# (solid_tangent_kernel in solid_kernels.cu), mirrored in float64 against
+# the twins' own functions; no JAX call.
+def _neohooke_P_F(H, lam, mu):
+    """stress_neohooke_F: P = mu H + r_F (mu (d2 I + H^T - cof H)
+    + lam lnJ K_F), K_F = (1 + tr H) I - H^T + cof H, d2 = tr cof H + det H,
+    r_F = 1 / (1 + tr H + d2)."""
+    cH, I = gm.cof3l(H), gm.eye3l(H)
+    trH, Ht = gm.tr3l(H), H.transpose(0, 1)
+    d2 = gm.tr3l(cH) + torch.einsum("j...,j...->...", H[0], cH[0])
+    delta = trH + d2
+    lnJ = 0.5 * torch.log1p(delta * (2.0 + delta))
+    KF = (1.0 + trH) * I - Ht + cH
+    return mu * H + (mu * (d2 * I + Ht - cH) + lam * lnJ * KF) / (1.0 + delta)
+
+
+def _force_gen_gp(J, du, Ge_g, w_g, lam, mu, model):
+    """force_gen_edge_element's Gauss point: Q = w P(H) K, K = cof(J),
+    H = Hhat(u) K^T / det J (det J from K's first row); returns (Q, det J);
+    model None is the mass-only mode (det3 of J alone, Q None)."""
+    if model is None:
+        return None, gm.det3l(J)
+    K = gm.cof3l(J)
+    det = torch.einsum("j...,j...->...", J[0], K[0])
+    H = torch.einsum("ik...,jk...->ij...",
+                     torch.einsum("jei...,je->ij...", du, Ge_g), K) / det
+    if model == "neohooke":
+        P = _neohooke_P_F(H, lam, mu)
+    else:
+        S, _ = lat._svk_stress(lat._strain_A(H), lam, mu)
+        P = gm.matmul3l(H + gm.eye3l(H), S)
+    return w_g * gm.matmul3l(P, K), det
+
+
+def _force_gen_edges(xe, ue, dN, w, N, lam, mu, model, mcoef, stiff):
+    """The whole B4 element pass by edges on corners (8, 3, ...): the Gauss
+    loop into edge sums with the shift register of det J, then the mass
+    on u's corners read again, then edges_to_nodes."""
+    Ge = _edge_table(dN)
+    dx, du = _edge_diff(xe), _edge_diff(ue)
+    R, c = torch.zeros_like(dx), [None] * 8
+    for g in range(8):
+        Q, det = _force_gen_gp(torch.einsum("jei...,je->ij...", dx, Ge[g]),
+                               du, Ge[g], w[g], lam, mu,
+                               model if stiff else None)
+        if stiff:
+            R += torch.einsum("ij...,je->jei...", Q, Ge[g])
+        c = [det] + c[:7]
+    fe = _edges_to_nodes(R)
+    if mcoef:
+        fe += sum(lat._mass_gp(ue, N[g], mcoef * w[g] * c[7 - g])
+                  for g in range(8))
+    return fe
+
+
+@pytest.mark.parametrize("model", ["neohooke", "svk"])
+def test_gen_edge_force_gauss_point_matches_dense(model):
+    """Each Gauss point's share sum_a Q dN_a of the edge form ==
+    force_gen_elements restricted to that Gauss point, on jittered
+    elements."""
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    lam, mu = lame(E_MOD, NUE)
+    xe = _jittered_elements(6, 51)
+    ue = torch.as_tensor(np.random.default_rng(52).normal(size=(8, 3, 6))
+                         * 5e-2)
+    Ge = _edge_table(dN)
+    dx, du = _edge_diff(xe), _edge_diff(ue)
+    for g in range(8):
+        Q, _ = _force_gen_gp(torch.einsum("jei...,je->ij...", dx, Ge[g]), du,
+                             Ge[g], w[g], lam, mu, model)
+        want = lat.force_gen_elements(xe, ue, dN[g:g + 1], w[g:g + 1],
+                                      N[g:g + 1], lam, mu, model)
+        _close(_edges_to_nodes(torch.einsum("ij...,je->jei...", Q, Ge[g])),
+               want)
+
+
+@pytest.mark.parametrize("stiff", [True, False])
+def test_gen_force_mass_after_the_loop_matches_mass_gp(stiff):
+    """The force's mass after the loop: c[7 - g] = det J_g from the force
+    loop (K's first row, or det3 in the mass-only mode), applied to u's
+    corners == sum_g _mass_gp(ue, N_g, mcoef wdet_g)."""
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    xe = _jittered_elements(6, 53)
+    ue = torch.as_tensor(np.random.default_rng(54).normal(size=(8, 3, 6)))
+    Ge = _edge_table(dN)
+    dx, du = _edge_diff(xe), _edge_diff(ue)
+    c = [None] * 8
+    for g in range(8):
+        _, det = _force_gen_gp(torch.einsum("jei...,je->ij...", dx, Ge[g]),
+                               du, Ge[g], w[g], 1.0, 1.0,
+                               "svk" if stiff else None)
+        c = [det] + c[:7]
+    got = sum(lat._mass_gp(ue, N[g], 137.5 * w[g] * c[7 - g])
+              for g in range(8))
+    want = sum(lat._mass_gp(ue, N[g], 137.5 * lat._geom_gp(xe, dN[g],
+                                                           w[g])[1])
+               for g in range(8))
+    _close(got, want, rtol=1e-13)
+
+
+# mode -> (model, mcoef, stiff), as test_torch_gpu.py's GEN_FORCE
+_GEN_FORCE = {"neohooke": ("neohooke", 0.0, True),
+              "svk": ("svk", 0.0, True), "mass": ("svk", 2.5, False),
+              "fused": ("neohooke", 137.5, True)}
+
+
+@pytest.mark.parametrize("mode", list(_GEN_FORCE))
+def test_gen_edge_force_pass_matches_twin(mode):
+    """The whole B4 element pass by edges on a jittered 4x3x5 box,
+    assembled, == neo_force_gen_ref; the box's corner node (0, 0, 0), which
+    only element (0, 0, 0) holds, is pushed through that element, so
+    det F < 0 at some of its Gauss points."""
+    model, mcoef, stiff = _GEN_FORCE[mode]
+    spec = lat.LatticeSpec(pshape=tuple(s + 1 for s in SHAPE), h=None)
+    rng = np.random.default_rng(55)
+    idx = np.stack(np.meshgrid(*[np.arange(p) for p in spec.pshape],
+                               indexing="ij"), axis=-1)
+    h = np.asarray(HI) / np.asarray(SHAPE)
+    X = idx * h + (rng.random(idx.shape) - 0.5) * 0.3 * h
+    U = rng.normal(size=idx.shape) * 3e-2
+    U[0, 0, 0] = 1.4 * h
+    x, u = (_lat_t(a.reshape(-1), spec) for a in (X, U))
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    lam, mu = lame(E_MOD, NUE)
+    xe, ue = torch.stack(lat._corners(x)), torch.stack(lat._corners(u))
+    detF = torch.stack([gm.det3l(H + gm.eye3l(H)) for H in (
+        torch.einsum("ai...,aj...->ij...", ue, lat._geom_gp(xe, dN[g],
+                                                            1.0)[0])
+        for g in range(8))])
+    assert float(detF[:, 0, 0, 0].min()) < 0.0
+    fe = _force_gen_edges(xe, ue, dN, w, N, lam, mu, model, mcoef, stiff)
+    want = lat.neo_force_gen_ref(x, u, dN, w, N, lam, mu, model, mcoef, stiff)
+    _close(lat._assemble(fe, u), want)
+
+
+def _permuted_batches(shape, seed):
+    """(24, E) element batches X, u, v of a jittered box whose nodes are
+    renumbered at random (general topology), as ops/solid.py's twins take
+    them: row a*3+i = component i of local node a in the hex8 cell order."""
+    disc = gridgen.box(*shape, hi=HI)
+    rng = np.random.default_rng(seed)
+    X = np.array(disc.coords)
+    X += (rng.random(X.shape) - 0.5) * 0.3 * np.asarray(HI) / np.asarray(
+        shape)
+    perm = rng.permutation(disc.n_nodes)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(disc.n_nodes)
+    conn = inv[disc.blocks["hex8"].conn]
+    X = X[perm]
+
+    def batch(nodal):
+        return torch.as_tensor(nodal[conn].reshape(-1, 24).T.copy())
+
+    return (batch(X), batch(rng.normal(size=X.shape) * 3e-2),
+            batch(rng.normal(size=X.shape)))
+
+
+@pytest.mark.parametrize("model, mcoef", [("neohooke", 0.0), ("svk", 0.0),
+                                          ("neohooke", 137.5)])
+def test_solid_tangent_edge_pass_matches_twin(model, mcoef):
+    """B7 by edges: the columns of a (24, E) batch of a permuted box as
+    corners (8, 3, E), their edge differences, B5's Gauss loop and the mass
+    on v's column read again == hex8_tangent_ref."""
+    X24, u24, v24 = _permuted_batches((3, 2, 2), 56)
+    E = X24.shape[1]
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    lam, mu = lame(E_MOD, NUE)
+    Ge = _edge_table(dN)
+    xe, ue, ve = (a.reshape(8, 3, E) for a in (X24, u24, v24))
+    dx, du, dv = _edge_diff(xe), _edge_diff(ue), _edge_diff(ve)
+    R, c = torch.zeros_like(dv), [None] * 8
+    for g in range(8):
+        Q, det = _gen_gp(torch.einsum("jei...,je->ij...", dx, Ge[g]), du, dv,
+                         Ge[g], w[g], lam, mu, model)
+        R += torch.einsum("ij...,je->jei...", Q, Ge[g])
+        c = [det] + c[:7]
+    fe = _edges_to_nodes(R)
+    if mcoef:
+        fe += sum(lat._mass_gp(ve, N[g], mcoef * w[g] * c[7 - g])
+                  for g in range(8))
+    want = sops.hex8_tangent_ref(X24, u24, v24, lam, mu, model, mcoef)
+    _close(fe.reshape(24, E), want)
+
+
+def _naive_neohooke_P(H, lam, mu):
+    """P = mu (F - F^-T) + lam log(det F) F^-T: the form that cancels."""
+    F = H + gm.eye3l(H)
+    det = gm.det3l(F)
+    FinvT = gm.cof3l(F) / det
+    return mu * (F - FinvT) + lam * torch.log(det) * FinvT
+
+
+@pytest.mark.parametrize("size", [1e-6, 1e-3])
+def test_neohooke_force_stress_has_no_cancellation(size):
+    """In float32, over 200 random H of entries up to ``size``, the
+    deformation-gradient form of B4 keeps its relative error against the
+    reference's P = F S in float64 (on the same rounded H) at or below 1e-5;
+    at 1e-6 the plain mu (F - F^-T) form is off by more than 1e-3."""
+    lam, mu = lame(E_MOD, NUE)
+    H32 = torch.as_tensor(np.random.default_rng(57).uniform(
+        -size, size, size=(3, 3, 200)), dtype=torch.float32)
+    H = H32.double()
+    S, _ = lat._neo_stress(lat._strain_A(H), lam, mu)
+    want = gm.matmul3l(H + gm.eye3l(H), S)
+
+    def rel(P):
+        return float((P.double() - want).abs().max() / want.abs().max())
+
+    assert rel(_neohooke_P_F(H, lam, mu)) <= 1e-12
+    assert rel(_neohooke_P_F(H32, lam, mu)) <= 1e-5
+    if size == 1e-6:
+        assert rel(_naive_neohooke_P(H32, lam, mu)) > 1e-3

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Count a lattice kernel's calls on a chip_smoke.py path by level and mode,
-and time each kind of call on one CUDA GPU.
+"""Count a kernel's calls on a chip_smoke.py path by level and mode, and
+time each kind of call on one CUDA GPU.
 
 Usage, from the repository root on a machine with a CUDA device and nvcc:
 
-    python tools/kernel_calls_by_level.py [flagship|jittered] [--old]
+    python tools/kernel_calls_by_level.py [flagship|jittered|permuted] [--old]
 
-Runs the path as chip_smoke.py does (n=72, float32: the initial state, one
-warm-up and 5 steps) with the wrappers of its most-called kernels wrapped in
-counters: B3 ``stencil_matvec`` (GMG levels and the mass) and B2
-``neo_tangent`` (the tangent, with the mass in the Krylov operator) on the
-flagship, B5 ``neo_tangent_gen`` on the jittered box (the Neo-Hooke tangent
-with the mass, and the linear mode of the GMG levels).  Then times one call
-of each kind (mode, lattice size) as a CUDA graph of 20 calls on the inputs
-it was first called with, and prints launches, time, the bound of
-chip_smoke.py and launches x (time - bound).  With ``--old`` on the
-jittered box it also builds tools/b5_variants.cu, times B5's element pass
-before the edge form ("old" of tools/b5_variants.py) on the same inputs,
-and prints its launches x (time - bound) on the dense pass's flop count
-beside the shipped B5's on both counts.
+Runs the path as chip_smoke.py does (n=72, or n=56 on the permuted box,
+float32: the initial state, one warm-up and 5 steps) with the wrappers of
+its kernels wrapped in counters: B3 ``stencil_matvec`` (GMG levels and the
+mass) and B2 ``neo_tangent`` (the tangent, with the mass in the Krylov
+operator) on the flagship; B5 ``neo_tangent_gen`` (the Neo-Hooke tangent
+with the mass, and the linear mode of the GMG levels) and B4
+``neo_force_gen`` (the force, and the mass alone) on the jittered box; B7
+``hex8_tangent`` and B6 ``hex8_force`` (the force, and the mass alone) on
+the permuted box.  Then times one call of each kind (mode, size) as a CUDA
+graph of 20 calls on the inputs it was first called with, and prints
+launches, time, the bound of chip_smoke.py and launches x (time - bound).
+With ``--old`` on the jittered box it also builds tools/b5_variants.cu,
+times B5's element pass before the edge form ("old" of
+tools/b5_variants.py) on the same inputs, and prints its launches x (time -
+bound) on the dense pass's flop count beside the shipped B5's on both
+counts.
 """
 
 import collections
@@ -32,6 +35,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from fourc_tpu_torch.ops import lattice_kernels as lk  # noqa: E402
+from fourc_tpu_torch.ops import solid_kernels as sk  # noqa: E402
 from fourc_tpu_torch.physics import solid as ps  # noqa: E402
 
 
@@ -50,13 +54,41 @@ def _tangent_gen_kind(x, u, v, dN, w, N, lam, mu, model="neohooke",
     return mode, v.shape[1] - 3
 
 
-# per path and wrapper: its chip_smoke.py kernel key, the kind of a call,
-# (mode as chip_smoke.py names its cases, elements per axis), and how many
-# leading arguments its bound reads
+def _force_mode(model, mcoef, stiff):
+    return ("mass-only" if not stiff else
+            model + "+mass" if mcoef else model)
+
+
+def _force_gen_kind(x, u, dN, w, N, lam, mu, model="neohooke", mcoef=0.0,
+                    stiff=True):
+    return _force_mode(model, mcoef, stiff), u.shape[1] - 3
+
+
+def _elements_per_axis(X24):
+    return round(X24.shape[1] ** (1 / 3))
+
+
+def _solid_force_kind(X24, u24, lam, mu, model="neohooke", mcoef=0.0,
+                      stiff=True):
+    return _force_mode(model, mcoef, stiff), _elements_per_axis(X24)
+
+
+def _solid_tangent_kind(X24, u24, v24, lam, mu, model="neohooke", mcoef=0.0):
+    return (model + "+mass" if mcoef else model), _elements_per_axis(X24)
+
+
+# per path and wrapper: its module, its chip_smoke.py kernel key, the kind
+# of a call, (mode as chip_smoke.py names its cases, elements per axis), and
+# how many leading arguments its bound reads
 WRAPPED = {
-    "flagship": {"stencil_matvec": ("stencil", _stencil_kind, 2),
-                 "neo_tangent": ("tangent", _tangent_kind, 2)},
-    "jittered": {"neo_tangent_gen": ("tangent_gen", _tangent_gen_kind, 3)},
+    "flagship": {"stencil_matvec": (lk, "stencil", _stencil_kind, 2),
+                 "neo_tangent": (lk, "tangent", _tangent_kind, 2)},
+    "jittered": {"neo_tangent_gen": (lk, "tangent_gen", _tangent_gen_kind,
+                                     3),
+                 "neo_force_gen": (lk, "force_gen", _force_gen_kind, 2)},
+    "permuted": {"hex8_tangent": (sk, "solid_tangent", _solid_tangent_kind,
+                                  3),
+                 "hex8_force": (sk, "solid_force", _solid_force_kind, 2)},
 }
 
 
@@ -69,11 +101,11 @@ def main():
     if "--old" in sys.argv[1:] and path != "jittered":
         sys.exit("--old compares B5 on the jittered path only")
     wrapped = WRAPPED[path]
-    orig = {attr: getattr(lk, attr) for attr in wrapped}
+    orig = {attr: getattr(mod, attr) for attr, (mod, *_) in wrapped.items()}
     tally, first = collections.Counter(), {}
 
     def counter(attr):
-        kind_of = wrapped[attr][1]
+        kind_of = wrapped[attr][2]
 
         def counted(*args, **kwargs):
             kind = (attr, *kind_of(*args, **kwargs))
@@ -84,8 +116,8 @@ def main():
             return orig[attr](*args, **kwargs)
         return counted
 
-    for attr in wrapped:
-        setattr(lk, attr, counter(attr))
+    for attr, (mod, *_) in wrapped.items():
+        setattr(mod, attr, counter(attr))
     f = cs.build_problem(cs.FULL_N[path], "cuda", torch.float32, path)
     cs.reset_launches()
     state = ps.compute_initial_state(f, ps.init_state(f))
@@ -94,7 +126,7 @@ def main():
         state, _ = step(state)
     torch.cuda.synchronize()
     for attr, fn in orig.items():
-        setattr(lk, attr, fn)
+        setattr(wrapped[attr][0], attr, fn)
     print(f"{path} n={cs.FULL_N[path]} launches {cs.launches()}")
     lib = None
     if "--old" in sys.argv[1:]:
@@ -104,7 +136,7 @@ def main():
     total = collections.Counter()
     for kind in sorted(tally, key=lambda c: (c[0], c[1], -c[2])):
         attr, mode, n = kind
-        key, _, n_args = wrapped[attr]
+        _, key, _, n_args = wrapped[attr]
         args, kwargs = first[kind]
         fn = orig[attr]
         out = fn(*args, **kwargs)
@@ -116,7 +148,7 @@ def main():
         msg = (f"{attr} {mode:14s} n={n:2d}: {tally[kind]:5d} "
                f"launches, {ms:.4f} ms per call (graph), bound {bound:.5f} ms "
                f"({by}), launches x (time - bound) {excess:.1f} ms")
-        if lib is not None:
+        if lib is not None and attr == "neo_tangent_gen":
             a = inspect.signature(fn).bind(*args, **kwargs)
             a.apply_defaults()
             a = a.arguments
