@@ -85,14 +85,20 @@ FULL_N = {"flagship": 72, "jittered": 72, "permuted": 56}  # elements per axis
 # the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # Flops of one element of the element kernels, counted from the kernel
-# code with an FMA as 2 and log1p or a division as 1.  Per Gauss point:
-# grad 144, strain_A 63, Neo-Hooke stress 139, SVK stress 16, F = I + H 3,
-# mm 45, accum 168, strain_A_dual 117, Neo-Hooke dual stress 300, SVK dual
-# 16, the Pd sum 9, consistent mass 106.  The lattice kernels' gather pass
-# adds 24 adds per element; the element-batch kernels B6/B7 have no such
-# pass.
-_GP = {"force neohooke": 144 + 63 + 139 + 3 + 45 + 168,
-       "force svk": 144 + 63 + 16 + 3 + 45 + 168}
+# code with an FMA as 2 and log1p or a division as 1.  The lattice kernels'
+# gather pass adds 24 adds per element; the element-batch kernels B6/B7
+# have no such pass.
+# B1 works by the 12 edges of an element (force_elem_kernel): per Gauss
+# point H by grad_edges 72 (4 FMAs per entry) and accum_edges with the
+# weight 81 (the weight 9, 36 FMAs); then P: Neo-Hooke in
+# deformation-gradient form 130 (stress_neohooke_F, as B4 below), or SVK
+# 127 (strain_A 63, stress 16, F 3, F S 45).  Per element the edge
+# differences 36, edges_to_nodes 72 and the gather's 24.  No code in the
+# repo computes this operator with less, so it bounds B1's first pass too
+# (counted as the dense form: per Gauss point grad 144, strain_A 63, the
+# stress 139 or 16, F 3, F S 45 and the dense accumulation 168; 4,520 flops
+# per element Neo-Hooke and 3,536 SVK with the gather).
+_B1_GP = 72 + 81
 # B2 works by the 12 edges of an element (tangent_elem_kernel): per Gauss
 # point grad_edges 2 x 72 (4 FMAs per entry), the Neo-Hooke tangent in
 # deformation-gradient form 234 (tr H 2, tr H^2 18, det3 14, delta 5, lnJ
@@ -135,8 +141,8 @@ _B5_SVK = _B5_GP + 72 + 54 + 63 + 117 + 2 * 16 + 3 + 2 * 45 + 9
 _B4_GP = 72 + 27 + 5 + 1 + 72 + 54 + 45 + 81
 _B4_NEO, _B4_SVK = _B4_GP + 130, _B4_GP + 127
 ELEM_FLOPS = {
-    ("force", "neohooke"): 8 * _GP["force neohooke"] + 24,
-    ("force", "svk"): 8 * _GP["force svk"] + 24,
+    ("force", "neohooke"): 8 * (_B1_GP + 130) + 36 + 72 + 24,
+    ("force", "svk"): 8 * (_B1_GP + 127) + 36 + 72 + 24,
     ("tangent", "neohooke"): 8 * _B2_GP + 72 + 72 + 24,
     ("tangent", "neohooke+mass"): 8 * _B2_GP + 72 + 72 + 384 + 24,
     ("force_gen", "neohooke"): 8 * _B4_NEO + 2 * 36 + 72 + 24,
@@ -147,8 +153,8 @@ ELEM_FLOPS = {
     ("tangent_gen", "neohooke+mass"): 8 * (_B5_NEO + 106) + 3 * 36 + 72 + 24,
     ("tangent_gen", "linear (u=0)"): 8 * _B5_LIN + 2 * 36 + 72 + 24,
 }
-# B6/B7: B4/B5 on an element batch, without the gather pass (B6 runs the
-# dense pass, but B4's edge form bounds its operator)
+# B6/B7: B4's and B5's edge passes on an element batch, without the gather
+# pass
 for _kind in ("neohooke", "svk", "mass-only", "neohooke+mass"):
     ELEM_FLOPS[("solid_force", _kind)] = ELEM_FLOPS[("force_gen", _kind)] - 24
 for _kind, _gp in (("svk", _B5_SVK), ("svk+mass", _B5_SVK + 106)):
@@ -216,10 +222,13 @@ def phase_build():
                     flag = ", " + ("Neo-Hooke", "SVK", "linear")[int(args[0])]
                     if len(args) > 1:
                         flag += ", mass" if args[1] == "1" else ""
-                elif "force_gen" in m.group(1) and args:  # model, stiff, mass
+                elif re.search("force_gen|solid_force", m.group(1)) and args:
+                    # model, stiff, mass
                     flag = (", " + ("Neo-Hooke", "SVK")[int(args[0])]
                             + ", mass" * (args[2] == "1")
                             if args[1] == "1" else ", mass-only")
+                elif "force" in m.group(1) and args:  # model
+                    flag = ", " + ("Neo-Hooke", "SVK")[int(args[0])]
                 name = (f"{m.group(1)}<"
                         f"{'float' if m.group(2) == 'f' else 'double'}{flag}>")
             elif "spill stores" in line:

@@ -2,20 +2,20 @@
 //
 // Port of the 3x3 helpers of fourc_tpu/ops/solid_pallas.py: _mm, _det,
 // _cof, _inv_from_cof, _strain_A, _stress_neohooke / _stress_neohooke_dual
-// and _stress_svk / _stress_svk_dual, plus the tangent stress Pd that every
-// tangent kernel shares, the one-element-per-thread helpers (tables in
-// shared memory, gradients, accumulation), the same by the 12 edges of an
-// element with the Neo-Hooke tangent in deformation-gradient form (B2), the
-// general-geometry force Gauss loop of one element against its 8 corners
-// (force_gen_element, B6's), the general-geometry tangent by the 12 edges
-// (B5 and B7) and the general-geometry force by the 12 edges with the
-// Neo-Hooke stress in deformation-gradient form (B4).  tangent_gen_element
-// is the dense tangent pass before the edge form, which no product kernel
-// runs; the tools that time the old passes build on it.
+// and _stress_svk / _stress_svk_dual, plus the tangent stress Pd of the St.
+// Venant-Kirchhoff tangents, and the element passes by the 12 edges of an
+// element that every kernel runs: the uniform lattice's tables, gradients
+// and accumulation with the Neo-Hooke tangent in deformation-gradient form
+// (B2, and B1's force), the general-geometry tangent (B5 and B7) and the
+// general-geometry force with the Neo-Hooke stress in deformation-gradient
+// form (B4 and B6).  The dense passes against all 8 corners that these
+// replaced live in tools/dense_passes.cuh, for the tools that time them.
 // Everything lives in registers; the index loops are fully unrolled so the
 // 3x3 arrays never touch local memory.
 //
-// Neo-Hooke uses the cancellation-free form of the reference:
+// The material form of Neo-Hooke (stress_neohooke, which the SVK route of
+// tangent_stress still compiles) is the cancellation-free form of the
+// reference:
 //   A = 2E = H + H^T + H^T H,  C = I + A,
 //   det C - 1 = tr A + (tr(A)^2 - tr(A^2)) / 2 + det A   (exact),
 //   lnJ = log1p(det C - 1) / 2,  S = C^-1 (mu A + lam lnJ I).
@@ -227,57 +227,13 @@ __device__ __forceinline__ void mm_abt(const T a[3][3], const T b[3][3], T c[3][
 }
 
 // ---------------------------------------------------------------------------
-// One hex8 element per thread: tables, gradients, accumulation
+// One hex8 element per thread: the element vector and the mass
 // ---------------------------------------------------------------------------
 
 constexpr int kElemThreads = 128;
 
 inline unsigned int blocks_for(long long n, int threads) {
   return (unsigned int)((n + threads - 1) / threads);
-}
-
-// hex8 tables in shared memory: G[g][a][j] (192; the cartesian gradients of
-// a uniform lattice, or the reference gradients dN on general geometry),
-// w[g] (8; wdet, or the Gauss weights), N[g][a] (64)
-template <typename T>
-struct GeomShared {
-  T G[8][8][3];
-  T w[8];
-  T N[8][8];
-};
-
-template <typename T>
-__device__ __forceinline__ void load_geom(GeomShared<T>& s, const T* G, const T* w,
-                                          const T* N) {
-  for (int t = threadIdx.x; t < 192; t += blockDim.x) (&s.G[0][0][0])[t] = G[t];
-  for (int t = threadIdx.x; t < 8; t += blockDim.x) s.w[t] = w[t];
-  if (N != nullptr)
-    for (int t = threadIdx.x; t < 64; t += blockDim.x) (&s.N[0][0])[t] = N[t];
-  __syncthreads();
-}
-
-template <typename T>
-__device__ __forceinline__ void grad(const T xe[8][3], const T G[8][3], T H[3][3]) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      T s = T(0);
-#pragma unroll
-      for (int a = 0; a < 8; ++a) s += xe[a][i] * G[a][j];
-      H[i][j] = s;
-    }
-}
-
-// fe[a][i] += wg * sum_j P[i][j] G[a][j]
-template <typename T>
-__device__ __forceinline__ void accum(const T P[3][3], const T G[8][3], T wg,
-                                      T fe[8][3]) {
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      fe[a][i] += wg * (P[i][0] * G[a][0] + P[i][1] * G[a][1] + P[i][2] * G[a][2]);
 }
 
 // element vector -> column e of a (24, E) array, row a*3+i (neighbouring
@@ -356,11 +312,13 @@ __device__ __forceinline__ T edge_table_entry(const T* G, int t) {
                    G[(g * 8 + edge_node(j, e, 0)) * 3 + j]);
 }
 
-// Builds the tables from G (8, 8, 3), wdet (8) and N (8, 8); one barrier.
+// Builds the tables from G (8, 8, 3), wdet (8) and N (8, 8; without N, as
+// for B1's force, Mc is not built and N is not read); one barrier.
 template <typename T>
 __device__ __forceinline__ void load_edge_tables(EdgeShared<T>& s, const T* G,
                                                  const T* w, const T* N, T mcoef) {
-  for (int t = threadIdx.x; t < 96 + 8 + 64; t += blockDim.x) {
+  const int n = N != nullptr ? 96 + 8 + 64 : 96 + 8;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
     if (t < 96) {
       (&s.Ge[0][0][0])[t] = edge_table_entry(G, t);
     } else if (t < 104) {
@@ -374,6 +332,15 @@ __device__ __forceinline__ void load_edge_tables(EdgeShared<T>& s, const T* G,
     }
   }
   __syncthreads();
+}
+
+// R = 0 (the 36 edge sums)
+template <typename T>
+__device__ __forceinline__ void zero_edges(T R[3][4][3]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) R[j][e][0] = R[j][e][1] = R[j][e][2] = T(0);
 }
 
 // dx[j][e][i] = xe[a+][i] - xe[a-][i]
@@ -488,115 +455,7 @@ __device__ __forceinline__ void tangent_neohooke_F(const T H[3][3], const T Hd[3
 }
 
 // ---------------------------------------------------------------------------
-// General geometry: the Gauss loop of one element from its 8 corners
-// (s.G holds the reference gradients dN[g][a][j], s.w the Gauss weights)
-// ---------------------------------------------------------------------------
-
-// Jinv and det of J = sum_a x_a dN_a^T (J_ij = dx_i / dxi_j)
-template <typename T>
-__device__ __forceinline__ void jacobian(const T xe[8][3], const T dN[8][3],
-                                         T Jinv[3][3], T& det) {
-  T J[3][3], C[3][3];
-  grad(xe, dN, J);
-  cof3(J, C);
-  det = det3(J);
-  inv_from_cof(C, det, Jinv);
-}
-
-// cartesian gradient H = (sum_a ue_a dN_a^T) Jinv
-template <typename T>
-__device__ __forceinline__ void grad_gen(const T ue[8][3], const T dN[8][3],
-                                         const T Jinv[3][3], T H[3][3]) {
-  T Hh[3][3];
-  grad(ue, dN, Hh);
-  mm(Hh, Jinv, H);
-}
-
-// fe_a += wdet P G_a with G_a = Jinv^T dN_a, as fe_a += wdet (P Jinv^T) dN_a
-template <typename T>
-__device__ __forceinline__ void accum_gen(const T P[3][3], const T Jinv[3][3],
-                                          const T dN[8][3], T wdet, T fe[8][3]) {
-  T Q[3][3];
-  mm_abt(P, Jinv, Q);
-  accum(Q, dN, wdet, fe);
-}
-
-// fe = sum_g wdet_g P(F_g) G_g (when stiff) + mcoef sum_g wdet_g N N^T ue
-// (when mcoef != 0); model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff.  The
-// mass needs only det J: no cofactor, no inverse.  B6's pass, and B4's
-// before its edge form (force_gen_edge_element).
-template <typename T>
-__device__ __forceinline__ void force_gen_element(const T xe[8][3], const T ue[8][3],
-                                                  const GeomShared<T>& s, T lam, T mu,
-                                                  int model, T mcoef, int stiff,
-                                                  T fe[8][3]) {
-  zero_fe(fe);
-#pragma unroll 1
-  for (int g = 0; g < 8; ++g) {
-    T J[3][3];
-    grad(xe, s.G[g], J);
-    const T det = det3(J);
-    const T wdet = det * s.w[g];
-    if (stiff) {
-      T C[3][3], Jinv[3][3], H[3][3], A[3][3], S[3][3], F[3][3], P[3][3];
-      cof3(J, C);
-      inv_from_cof(C, det, Jinv);
-      grad_gen(ue, s.G[g], Jinv, H);
-      strain_A(H, A);
-      if (model == 0) {
-        NeoAux<T> aux;
-        stress_neohooke(A, lam, mu, S, aux);
-      } else {
-        stress_svk(A, lam, mu, S);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
-      mm(F, S, P);
-      accum_gen(P, Jinv, s.G[g], wdet, fe);
-    }
-    if (mcoef != T(0)) mass_accum(ue, s.N[g], mcoef * wdet, fe);
-  }
-}
-
-// fe = K(ue) ve + mcoef sum_g wdet_g N N^T ve.  kLinear: u = 0 (ue is not
-// read), where every law is linear elasticity,
-// Pd = lam tr(Hd) I + mu (Hd + Hd^T).  The dense pass of B5 and B7 before
-// their edge form (tangent_gen_edge_element); no product kernel calls it,
-// tools/b5_variants.cu and tools/b7_b4_variants.cu time it as "old".
-template <typename T, bool kLinear>
-__device__ __forceinline__ void tangent_gen_element(const T xe[8][3], const T ue[8][3],
-                                                    const T ve[8][3],
-                                                    const GeomShared<T>& s, T lam, T mu,
-                                                    int model, T mcoef, T fe[8][3]) {
-  zero_fe(fe);
-#pragma unroll 1
-  for (int g = 0; g < 8; ++g) {
-    T Jinv[3][3], det;
-    jacobian(xe, s.G[g], Jinv, det);
-    const T wdet = det * s.w[g];
-    T Hd[3][3], Pd[3][3];
-    grad_gen(ve, s.G[g], Jinv, Hd);
-    if constexpr (kLinear) {
-      T Ad[3][3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) Ad[i][j] = Hd[i][j] + Hd[j][i];
-      stress_svk(Ad, lam, mu, Pd);
-    } else {
-      T H[3][3];
-      grad_gen(ue, s.G[g], Jinv, H);
-      tangent_stress(H, Hd, lam, mu, model, Pd);
-    }
-    accum_gen(Pd, Jinv, s.G[g], wdet, fe);
-    if (mcoef != T(0)) mass_accum(ve, s.N[g], mcoef * wdet, fe);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// General geometry by the 12 edges (B5)
+// General geometry by the 12 edges (B4-B7)
 //
 // The reference gradients of a trilinear hex8 satisfy dN[a-][j] = -dN[a+][j]
 // along every edge of axis j, so one edge table Ge[g][j][e] (edge_table_entry
@@ -708,10 +567,7 @@ __device__ __forceinline__ void tangent_gen_edge_element(const T dx[3][4][3],
                                                          const GenEdgeShared<T>& s,
                                                          T lam, T mu, T R[3][4][3],
                                                          T c[8]) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) R[j][q][0] = R[j][q][1] = R[j][q][2] = T(0);
+  zero_edges(R);
 #pragma unroll 1
   for (int g = 0; g < 8; ++g) {
     T J[3][3], Q[3][3];
@@ -768,7 +624,25 @@ __device__ __forceinline__ void stress_neohooke_F(const T H[3][3], T lam, T mu,
     }
 }
 
-// The general-geometry force Gauss loop of one element by its edges (B4):
+// The first Piola stress of the force kernels (B1, B4, B6): kModel 0 =
+// Neo-Hooke (stress_neohooke_F), 1 = St. Venant-Kirchhoff (P = F S).
+template <typename T, int kModel>
+__device__ __forceinline__ void first_piola(const T H[3][3], T lam, T mu, T P[3][3]) {
+  if constexpr (kModel == 0) {
+    stress_neohooke_F(H, lam, mu, P);
+  } else {
+    T A[3][3], S[3][3], F[3][3];
+    strain_A(H, A);
+    stress_svk(A, lam, mu, S);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
+    mm(F, S, P);
+  }
+}
+
+// The general-geometry force Gauss loop of one element by its edges (B4, B6):
 // per Gauss point J = grad_edges(dx), K = cof(J), det J from K's first row,
 // H = Hhat(u) K^T / det J, P(H), and the edge sums gather Q = w P K
 // (wdet P Jinv^T = w P cof(J)), so no inverse and no wdet forms.  kModel:
@@ -782,12 +656,7 @@ __device__ __forceinline__ void force_gen_edge_element(const T dx[3][4][3],
                                                        const GenEdgeShared<T>& s,
                                                        T lam, T mu, T R[3][4][3],
                                                        T c[8]) {
-  if constexpr (kStiff) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) R[j][q][0] = R[j][q][1] = R[j][q][2] = T(0);
-  }
+  if constexpr (kStiff) zero_edges(R);
 #pragma unroll 1
   for (int g = 0; g < 8; ++g) {
     T J[3][3], det;
@@ -803,18 +672,7 @@ __device__ __forceinline__ void force_gen_edge_element(const T dx[3][4][3],
       for (int i = 0; i < 3; ++i)
 #pragma unroll
         for (int j = 0; j < 3; ++j) H[i][j] *= r;
-      if constexpr (kModel == 0) {
-        stress_neohooke_F(H, lam, mu, P);
-      } else {
-        T A[3][3], S[3][3], F[3][3];
-        strain_A(H, A);
-        stress_svk(A, lam, mu, S);
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
-        mm(F, S, P);
-      }
+      first_piola<T, kModel>(H, lam, mu, P);
       mm(P, K, Q);
       accum_edges(Q, s.Ge[g], s.w[g], R);
     } else {

@@ -38,7 +38,7 @@
 //   faster at n=36, 18 and 9 too (tools/b3_variants.py): now the load pipe
 //   (misaligned rows of v, two wavefronts each), the boundary shell's
 //   strided columns and a launch floor of about 4 us share the time.
-// - B1/B2 do 4-10k flops per element (8 Gauss points of 3x3 algebra),
+// - B1/B2 do 2.4-4.2k flops per element (8 Gauss points of 3x3 algebra),
 //   compute bound in registers.  One thread per REAL element computes the
 //   24-value element vector and writes it to a scratch buffer stored
 //   (24, E) so neighbouring threads write neighbouring addresses.  A second
@@ -67,6 +67,24 @@
 //   31.6% of the bound against 18.6%; by a plain loop of calls 0.0785
 //   against 0.1299 (tools/b2_variants.py).  The element pass alone takes
 //   0.0568 ms, the gather 0.0153-0.0157.
+// - B1 is B2's force: the same lattice and the same constant G, no Jacobian.
+//   Its first pass took gradients and the accumulation against
+//   all 8 corners and the Neo-Hooke stress in material form through C,
+//   cof(C) and C^-1, then P = F S: 4,520 flops per element with the gather
+//   (3,536 SVK).  Now it works by the 12 edges on B2's edge table of G,
+//   built in the block prologue without the element mass (load_edge_tables
+//   without N): per Gauss point H by grad_edges (72 flops), P by the
+//   cancellation-free deformation-gradient form of B4 (stress_neohooke_F,
+//   130; SVK P = F S, 127) and accum_edges with the weight (81): 2,396 flops
+//   per element with the gather (2,372 SVK), 0.0133 ms of float32 peak at
+//   n=72 against the 0.0252 of the first pass's count.  On an H100 80GB
+//   HBM3 at 700 W at n=72 (float32, a CUDA graph of calls, with the gather;
+//   tools/b1_b6_variants.py): Neo-Hooke 0.0533-0.0534 ms against
+//   0.0668-0.0677 for the first pass in the same runs (element pass 0.0372
+//   against 0.0521-0.0527), SVK 0.0484-0.0488 against 0.0581-0.0585.  Half
+//   the flops bought a fifth of the time: the element pass runs at 24
+//   TFLOP/s (36% of peak); SVK's pass, with no log1p and no division, takes
+//   0.034 ms, so those two, one flop each in the count, are a tenth of it.
 // - B4/B5 are B1/B2 on general geometry (box topology, arbitrary node
 //   positions): the element's 8 corner coordinates are read from a
 //   coordinate lattice x in the same layout, and each Gauss point's
@@ -76,13 +94,14 @@
 //   consistent mass of the general mesh, which needs only det J: no
 //   cofactor, no inverse).
 // - B4's first pass formed J^-1 and worked against the 8 corners
-//   (force_gen_element, B6's pass): 6,808 flops per element (848 per Gauss
-//   point), 0.1009 ms at n=72 on an H100 80GB HBM3 at 700 W.  Now it works
-//   by the 12 edges on B5's edge table of dN (force_gen_edge_element in
-//   lattice_common.cuh): J and Hhat(u) are grad_edges on the edge
-//   differences of x and u, no inverse forms (H = Hhat cof(J)^T / det J and
-//   the edge sums gather w P cof(J)), and the Neo-Hooke stress is taken in
-//   deformation-gradient form without cancellation (stress_neohooke_F:
+//   (force_gen_element, now in tools/dense_passes.cuh): 6,808 flops per
+//   element (848 per Gauss point), 0.1009 ms at n=72 on an H100 80GB HBM3
+//   at 700 W.  Now it works by the 12 edges on B5's edge table of dN
+//   (force_gen_edge_element in lattice_common.cuh): J and Hhat(u) are
+//   grad_edges on the edge differences of x and u, no inverse forms
+//   (H = Hhat cof(J)^T / det J and the edge sums gather w P cof(J)), and
+//   the Neo-Hooke stress is taken in deformation-gradient form without
+//   cancellation (stress_neohooke_F:
 //   P = mu H + (mu (d2 I + H^T - cof H) + lam lnJ cof(F)) / det F; the
 //   plain mu (F - F^-T) would lose the digits of H in float32).  The mass
 //   keeps det J of the 8 Gauss points in registers and reads u's corners
@@ -145,6 +164,14 @@ constexpr int kGatherThreads = 256;
 // compiler's own choice, 155 in float32, leaves 3 and is slower:
 // tools/b2_variants.py)
 constexpr int kTangentMinBlocks = 4;
+// B1: at least 5 blocks of 128 threads per SM with Neo-Hooke (at most 102
+// registers: 96, 24 B spilled in float32) and 4 with SVK (at most 128: 114,
+// the compiler's own count).  On an H100 80GB HBM3 at 700 W at n=72
+// (tools/b1_b6_variants.py, by a CUDA graph of calls with the gather)
+// Neo-Hooke takes 53.3-53.4 us at 5 blocks against 55.5-56.2 at 4, 3 or the
+// compiler's 122-128 registers; SVK 48.4-48.9 at 4 or 3 against 49.6-49.9
+// at 5.
+constexpr int force_min_blocks(int model) { return model == 0 ? 5 : 4; }
 // B5: at least 4 blocks of 128 threads per SM in the linear mode (at most
 // 128 registers; the compiler's 154 are 12% slower at n=72) and 3 with u
 // (at most 168; the compiler's 212-221 and the cap of 128 are 7-10%
@@ -412,38 +439,37 @@ __device__ __forceinline__ void load_corners(const T* __restrict__ x, const Dims
   }
 }
 
-// model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff
-template <typename T>
-__global__ void __launch_bounds__(kElemThreads)
+// B1: fe = sum_g wdet_g P(F_g) G_g of element e by its 12 edges
+// (lattice_common.cuh): the edge table of the lattice's constant G and wdet
+// in shared memory (no N, no mass), the edge differences of u and 36 edge
+// sums in registers through the Gauss loop, no Jacobian.  kModel: 0 =
+// Neo-Hooke (stress_neohooke_F), 1 = St. Venant-Kirchhoff (P = F S).
+template <typename T, int kModel, int kMinBlocks>
+__global__ void __launch_bounds__(kElemThreads, kMinBlocks)
 force_elem_kernel(const T* __restrict__ u, const T* __restrict__ Gg,
-                  const T* __restrict__ wg, T lam, T mu, int model, Dims d,
+                  const T* __restrict__ wg, T lam, T mu, Dims d,
                   T* __restrict__ scratch) {
-  __shared__ GeomShared<T> s;
-  load_geom(s, Gg, wg, (const T*)nullptr);
+  __shared__ EdgeShared<T> s;
+  load_edge_tables(s, Gg, wg, (const T*)nullptr, T(0));
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= d.E) return;
-  T ue[8][3];
-  load_corners(u, d, e, ue);
-  T fe[8][3];
-  zero_fe(fe);
+  T du[3][4][3], R[3][4][3];
+  {
+    T ue[8][3];
+    load_corners(u, d, e, ue);
+    edge_diff(ue, du);
+  }
+  zero_edges(R);
 #pragma unroll 1
   for (int g = 0; g < 8; ++g) {
-    T H[3][3], A[3][3], S[3][3], F[3][3], P[3][3];
-    grad(ue, s.G[g], H);
-    strain_A(H, A);
-    if (model == 0) {
-      NeoAux<T> aux;
-      stress_neohooke(A, lam, mu, S, aux);
-    } else {
-      stress_svk(A, lam, mu, S);
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) F[i][j] = H[i][j] + (i == j ? T(1) : T(0));
-    mm(F, S, P);
-    accum(P, s.G[g], s.w[g], fe);
+    T H[3][3], P[3][3];
+    grad_edges(du, s.Ge[g], H);
+    first_piola<T, kModel>(H, lam, mu, P);
+    accum_edges(P, s.Ge[g], s.w[g], R);
   }
+  T fe[8][3];
+  zero_fe(fe);
+  edges_to_nodes(R, fe);
   store_fe(fe, e, d.E, scratch);
 }
 
@@ -468,10 +494,7 @@ __device__ __forceinline__ void tangent_edge_element(const T* __restrict__ u,
     load_corners(v, d, e, xe);
     edge_diff(xe, dv);
   }
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) R[j][q][0] = R[j][q][1] = R[j][q][2] = T(0);
+  zero_edges(R);
 #pragma unroll 1
   for (int g = 0; g < 8; ++g) {
     T H[3][3], Hd[3][3], Pd[3][3];
@@ -679,13 +702,27 @@ int stencil(const T* K, const T* v, T* out, int nx, int ny, int nz, void* stream
   return (int)cudaGetLastError();
 }
 
+// B1's instantiation from the host's int: model 0 Neo-Hooke (at least
+// kNeoBlocks blocks per SM), else SVK (kSvkBlocks)
+template <typename T, int kNeoBlocks, int kSvkBlocks>
+void launch_force_edge(const T* u, const T* G, const T* w, T lam, T mu, int model,
+                       const Dims& d, T* scratch, cudaStream_t st) {
+  const unsigned int blocks = blocks_for(d.E, kElemThreads);
+  if (model == 0)
+    force_elem_kernel<T, 0, kNeoBlocks><<<blocks, kElemThreads, 0, st>>>(
+        u, G, w, lam, mu, d, scratch);
+  else
+    force_elem_kernel<T, 1, kSvkBlocks><<<blocks, kElemThreads, 0, st>>>(
+        u, G, w, lam, mu, d, scratch);
+}
+
 template <typename T>
 int force(const T* u, const T* G, const T* w, double lam, double mu, int model,
           T* scratch, T* out, int nx, int ny, int nz, void* stream) {
   const Dims d(nx, ny, nz);
   const cudaStream_t st = (cudaStream_t)stream;
-  force_elem_kernel<T><<<blocks_for(d.E, kElemThreads), kElemThreads, 0, st>>>(
-      u, G, w, (T)lam, (T)mu, model, d, scratch);
+  launch_force_edge<T, force_min_blocks(0), force_min_blocks(1)>(u, G, w, (T)lam, (T)mu,
+                                                                model, d, scratch, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   gather_kernel<T><<<blocks_for(d.n, kGatherThreads), kGatherThreads, 0, st>>>(

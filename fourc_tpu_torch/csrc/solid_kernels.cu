@@ -9,34 +9,50 @@
 // local node a, one column per element.  The gather u[conn] before and the
 // assembly into the nodes after are index operations of the caller.
 //
-// What bounds them on the H100 and what the design does about it: B6 runs the
-// dense Gauss loop force_gen_element of lattice_common.cuh (Jacobian, inverse
-// and gradients against the 8 corners), about 6.8k flops per element against
-// 288 bytes (X, u and the output in float32), limited by its instruction rate;
-// B4's edge form computes the same operator in 4.0k, which puts B6's bound on
-// bytes (0.0151 ms at n=56).  B7 is B5's operator on an element batch and runs
-// B5's pass by the 12 edges (tangent_gen_edge_element): the columns of X, u and
-// v become 36 edge differences each, the Gauss loop forms J, Hhat(u) and
-// Hhat(v) from them and gathers into 36 edge sums, no inverse forms, the
-// Neo-Hooke tangent is taken in deformation-gradient form, and with the mass
-// det J of the 8 Gauss points rides in registers and v's column is read again
-// after the loop.  5.9k flops per element (6.7k with the mass) against 384
-// bytes, so its bound is set by bytes (0.0201 ms at n=56).  The edge form needs
-// the element batch's local node order to be the hex8 cell order (0,0,0)
-// (1,0,0) (1,1,0) (0,1,0) (0,0,1) (1,0,1) (1,1,1) (0,1,1), the order that
-// edge_node and node_edge assume for the lattice: along every edge of axis j,
-// dN[a-][j] = -dN[a+][j].  On an H100 80GB HBM3 at 700 W (float32, n=56, a CUDA
-// graph of calls; tools/b7_b4_variants.py) B7 takes 0.0500-0.0502 ms with the
-// mass and 0.0451-0.0453 without, against 0.0873-0.0877 and 0.0834-0.0837 for
-// its first, dense pass (tangent_gen_element) in the same run.  One thread per
-// element; with the (24, E) layout thread e reads and writes address row*E + e,
-// so every row access of a warp is one coalesced line.  E need not be a multiple
-// of anything: the last block masks its tail (the TPU kernel padded E to tiles
-// of 512 and guarded det J of the zero padding; only real elements are visited
-// here).  The hex8 tables sit in shared memory, loaded from device pointers.
-// Like B4/B5, B6 can add the consistent mass of u (mcoef * sum_g wdet N N^T u)
-// or compute only that (stiff = 0, needs only det J), and B7 fuses mcoef * M v
-// into the tangent pass.
+// What bounds them on the H100 and what the design does about it: both run
+// the lattice kernels' passes by the 12 edges of the element on the columns
+// of the batch, since the batch's local node order is the hex8 cell order
+// (0,0,0) (1,0,0) (1,1,0) (0,1,0) (0,0,1) (1,0,1) (1,1,1) (0,1,1), the order
+// that edge_node and node_edge assume for the lattice: along every edge of
+// axis j, dN[a-][j] = -dN[a+][j].
+// - B6 is B4's operator and runs B4's pass (force_gen_edge_element): the
+//   columns of X and u become 36 edge differences each, the Gauss loop forms
+//   J and Hhat(u) from them and gathers w P cof(J) into 36 edge sums, no
+//   inverse forms, the Neo-Hooke stress is taken in the cancellation-free
+//   deformation-gradient form (stress_neohooke_F), and with the mass det J
+//   of the 8 Gauss points rides in registers and u's column is read again
+//   after the loop.  4.0k flops per element against 288 bytes (X, u and the
+//   output in float32), so its bound is set by bytes (0.0151 ms at n=56).
+//   Its first pass (force_gen_element, now in tools/dense_passes.cuh) took
+//   the Jacobian, its inverse and the gradients against the 8 corners, about
+//   6.8k flops per element, limited by its instruction rate.
+// - B7 is B5's operator and runs B5's pass (tangent_gen_edge_element): the
+//   columns of X, u and v become 36 edge differences each, the Gauss loop
+//   forms J, Hhat(u) and Hhat(v) from them and gathers into 36 edge sums, no
+//   inverse forms, the Neo-Hooke tangent is taken in deformation-gradient
+//   form, and with the mass det J of the 8 Gauss points rides in registers
+//   and v's column is read again after the loop.  5.9k flops per element
+//   (6.7k with the mass) against 384 bytes, so its bound is set by bytes
+//   (0.0201 ms at n=56).  On an H100 80GB HBM3 at 700 W (float32, n=56, a
+//   CUDA graph of calls; tools/b7_b4_variants.py) B7 takes 0.0500-0.0502 ms
+//   with the mass and 0.0451-0.0453 without, against 0.0873-0.0877 and
+//   0.0834-0.0837 for its first, dense pass (tangent_gen_element, now in
+//   tools/dense_passes.cuh) in the same run.
+// - B6 the same way (tools/b1_b6_variants.py): Neo-Hooke 0.0327-0.0329 ms
+//   against 0.0402-0.0404 for its first pass in the same runs, SVK
+//   0.0280-0.0282 against 0.0354-0.0356, mass-only 0.0197-0.0200 against
+//   0.0232-0.0234, with the mass 0.0372-0.0377 against 0.0430-0.0433; 46% of
+//   its bound with Neo-Hooke.  At 1.55 TB/s and 21.7 TFLOP/s it is held by
+//   neither bytes nor operations alone.
+// One thread per element; with the (24, E) layout thread e reads and writes
+// address row*E + e, so every row access of a warp is one coalesced line.  E
+// need not be a multiple of anything: the last block masks its tail (the TPU
+// kernel padded E to tiles of 512 and guarded det J of the zero padding;
+// only real elements are visited here).  The hex8 tables sit in shared
+// memory, loaded from device pointers.  Like B4/B5, B6 can add the
+// consistent mass of u (mcoef * sum_g wdet N N^T u) or compute only that
+// (stiff = 0, needs only det J), and B7 fuses mcoef * M v into the tangent
+// pass.
 //
 // Each extern "C" entry point launches on the caller's stream, never
 // synchronises, allocates nothing and returns cudaGetLastError() after its
@@ -58,23 +74,75 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ x, long long E,
     for (int i = 0; i < 3; ++i) xe[a][i] = x[(a * 3 + i) * E + e];
 }
 
-// model: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff; stiff = 0 skips the force
-// (mass-only mode); mcoef = 0 skips the mass
-template <typename T>
-__global__ void __launch_bounds__(kElemThreads)
+// B6: at least 4 blocks of 128 threads per SM (at most 128 registers, 24-80
+// B spilled in float32), as B4.  On an H100 80GB HBM3 at 700 W at n=56
+// (tools/b1_b6_variants.py, by a CUDA graph of calls) it beats the
+// compiler's own 156-168 registers and at most 168 by 8-11% with the force
+// (Neo-Hooke 32.7-32.9 against 35.6-35.8 us, SVK 28.0-28.2 against
+// 31.2-31.3, with the mass 37.2-37.7 against 40.8-41.8), and at most 102 is
+// 29-69% slower; the mass-only mode (80 registers at every cap) takes
+// 19.7-20.1 us at each.
+constexpr int kSolidForceMinBlocks = 4;
+
+// B6 by the 12 edges: force_gen_edge_kernel of lattice_kernels.cu on the
+// columns of the batch.  kModel: 0 = Neo-Hooke, 1 = St. Venant-Kirchhoff;
+// kStiff = false is the mass-only mode (X's column alone, det J only);
+// kMass: mcoef sum_g wdet_g N N^T u too, u's column read again after the
+// loop.
+template <typename T, int kModel, bool kStiff, bool kMass, int kMinBlocks>
+__global__ void __launch_bounds__(kElemThreads, kMinBlocks)
 solid_force_kernel(const T* __restrict__ X, const T* __restrict__ u,
                    const T* __restrict__ dNg, const T* __restrict__ wg,
-                   const T* __restrict__ Ng, T lam, T mu, int model, T mcoef,
-                   int stiff, long long E, T* __restrict__ out) {
-  __shared__ GeomShared<T> s;
-  load_geom(s, dNg, wg, Ng);
+                   const T* __restrict__ Ng, T lam, T mu, T mcoef, long long E,
+                   T* __restrict__ out) {
+  __shared__ GenEdgeShared<T> s;
+  load_gen_edge_tables(s, dNg, wg, kMass ? Ng : (const T*)nullptr);
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
-  T xe[8][3], ue[8][3], fe[8][3];
-  load_rows(X, E, e, xe);
-  load_rows(u, E, e, ue);
-  force_gen_element(xe, ue, s, lam, mu, model, mcoef, stiff, fe);
+  T dx[3][4][3], du[3][4][3], R[3][4][3], c[8];
+  {
+    T xe[8][3];
+    load_rows(X, E, e, xe);
+    edge_diff(xe, dx);
+    if constexpr (kStiff) {
+      load_rows(u, E, e, xe);
+      edge_diff(xe, du);
+    }
+  }
+  force_gen_edge_element<T, kModel, kStiff, kMass>(dx, du, s, lam, mu, R, c);
+  T fe[8][3];
+  zero_fe(fe);
+  if constexpr (kMass) {
+    T ue[8][3];
+    load_rows(u, E, e, ue);
+    mass_gen(ue, s, c, mcoef, fe);
+  }
+  if constexpr (kStiff) edges_to_nodes(R, fe);
   store_fe(fe, e, E, out);
+}
+
+// B6's instantiation from the host's ints: stiff = 0 is the mass-only mode
+// (mcoef = 0 there gives zeros), model 0 Neo-Hooke, else SVK
+template <typename T, int kMinBlocks>
+void launch_solid_force(const T* X, const T* u, const T* dN, const T* w, const T* N,
+                        T lam, T mu, int model, T mcoef, int stiff, long long E,
+                        T* out, cudaStream_t st) {
+  const unsigned int blocks = blocks_for(E, kElemThreads);
+  const bool mass = mcoef != T(0);
+#define FOURC_SOLID_FORCE(M, S, MS)                                              \
+  solid_force_kernel<T, M, S, MS, kMinBlocks><<<blocks, kElemThreads, 0, st>>>( \
+      X, u, dN, w, N, lam, mu, mcoef, E, out)
+  if (!stiff)
+    FOURC_SOLID_FORCE(0, false, true);
+  else if (model == 0 && mass)
+    FOURC_SOLID_FORCE(0, true, true);
+  else if (model == 0)
+    FOURC_SOLID_FORCE(0, true, false);
+  else if (mass)
+    FOURC_SOLID_FORCE(1, true, true);
+  else
+    FOURC_SOLID_FORCE(1, true, false);
+#undef FOURC_SOLID_FORCE
 }
 
 // B7: at least 3 blocks of 128 threads per SM (at most 168 registers, 72-104
@@ -143,9 +211,9 @@ template <typename T>
 int solid_force(const T* X, const T* u, const T* dN, const T* w, const T* N,
                 double lam, double mu, int model, double mcoef, int stiff,
                 long long E, T* out, void* stream) {
-  solid_force_kernel<T><<<blocks_for(E, kElemThreads), kElemThreads, 0,
-                          (cudaStream_t)stream>>>(
-      X, u, dN, w, N, (T)lam, (T)mu, model, (T)mcoef, stiff, E, out);
+  launch_solid_force<T, kSolidForceMinBlocks>(X, u, dN, w, N, (T)lam, (T)mu, model,
+                                              (T)mcoef, stiff, E, out,
+                                              (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

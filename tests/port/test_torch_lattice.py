@@ -621,10 +621,11 @@ def test_gpu_tangent_gen_inputs_conditioning():
     assert float(detF.min()) >= 0.2 and rel32 <= 1e-5
 
 
-# The algebra of the B4 force pass by edges (csrc/lattice_common.cuh:
-# stress_neohooke_F, force_gen_edge_element, force_gen_edge_kernel in
-# lattice_kernels.cu) and of B7's element-batch tangent by edges
-# (solid_tangent_kernel in solid_kernels.cu), mirrored in float64 against
+# The algebra of the force passes by edges (csrc/lattice_common.cuh:
+# stress_neohooke_F, first_piola, force_gen_edge_element; B1's
+# force_elem_kernel and B4's force_gen_edge_kernel in lattice_kernels.cu)
+# and of the element-batch kernels by edges (solid_force_kernel and
+# solid_tangent_kernel in solid_kernels.cu), mirrored in float64 against
 # the twins' own functions; no JAX call.
 def _neohooke_P_F(H, lam, mu):
     """stress_neohooke_F: P = mu H + r_F (mu (d2 I + H^T - cof H)
@@ -639,6 +640,14 @@ def _neohooke_P_F(H, lam, mu):
     return mu * H + (mu * (d2 * I + Ht - cH) + lam * lnJ * KF) / (1.0 + delta)
 
 
+def _first_piola(H, lam, mu, model):
+    """first_piola: stress_neohooke_F, or P = F S of St. Venant-Kirchhoff."""
+    if model == "neohooke":
+        return _neohooke_P_F(H, lam, mu)
+    S, _ = lat._svk_stress(lat._strain_A(H), lam, mu)
+    return gm.matmul3l(H + gm.eye3l(H), S)
+
+
 def _force_gen_gp(J, du, Ge_g, w_g, lam, mu, model):
     """force_gen_edge_element's Gauss point: Q = w P(H) K, K = cof(J),
     H = Hhat(u) K^T / det J (det J from K's first row); returns (Q, det J);
@@ -649,11 +658,7 @@ def _force_gen_gp(J, du, Ge_g, w_g, lam, mu, model):
     det = torch.einsum("j...,j...->...", J[0], K[0])
     H = torch.einsum("ik...,jk...->ij...",
                      torch.einsum("jei...,je->ij...", du, Ge_g), K) / det
-    if model == "neohooke":
-        P = _neohooke_P_F(H, lam, mu)
-    else:
-        S, _ = lat._svk_stress(lat._strain_A(H), lam, mu)
-        P = gm.matmul3l(H + gm.eye3l(H), S)
+    P = _first_piola(H, lam, mu, model)
     return w_g * gm.matmul3l(P, K), det
 
 
@@ -764,6 +769,35 @@ def test_gen_edge_force_pass_matches_twin(mode):
     _close(lat._assemble(fe, u), want)
 
 
+@pytest.mark.parametrize("model, push", [("neohooke", False), ("svk", False),
+                                         ("neohooke", True)])
+def test_force_edge_pass_matches_twin(box, model, push):
+    """B1 by edges on the 4x3x5 box: the edge table of G, the edge
+    differences of u, P(H) at every Gauss point into the edge sums with
+    wdet, edges_to_nodes, assembled == neo_force_ref.  With ``push`` the
+    box's corner node (0, 0, 0), which only element (0, 0, 0) holds, moves
+    into that element, so det F < 0.5 at some of its Gauss points."""
+    _, spec, _, _ = box
+    G, wdet = (torch.as_tensor(x) for x in _geom(spec))
+    lam, mu = lame(E_MOD, NUE)
+    U = _rand(spec, 5e-2, 26)
+    if push:
+        U[:3] = 0.5 * np.asarray(HI) / np.asarray(SHAPE)
+    u = _lat_t(U, spec)
+    Ge = _edge_table(G)
+    du = _edge_diff(torch.stack(lat._corners(u)))
+    R = torch.zeros_like(du)
+    detF = []
+    for g in range(8):
+        H = torch.einsum("jei...,je->ij...", du, Ge[g])
+        detF.append(gm.det3l(H + gm.eye3l(H))[0, 0, 0])
+        R += torch.einsum("ij...,je->jei...",
+                          wdet[g] * _first_piola(H, lam, mu, model), Ge[g])
+    assert (min(detF) < 0.5) == push
+    want = lat.neo_force_ref(u, G, wdet, lam, mu, model)
+    _close(lat._assemble(_edges_to_nodes(R), u), want)
+
+
 def _permuted_batches(shape, seed):
     """(24, E) element batches X, u, v of a jittered box whose nodes are
     renumbered at random (general topology), as ops/solid.py's twins take
@@ -812,6 +846,24 @@ def test_solid_tangent_edge_pass_matches_twin(model, mcoef):
         fe += sum(lat._mass_gp(ve, N[g], mcoef * w[g] * c[7 - g])
                   for g in range(8))
     want = sops.hex8_tangent_ref(X24, u24, v24, lam, mu, model, mcoef)
+    _close(fe.reshape(24, E), want)
+
+
+@pytest.mark.parametrize("mode", list(_GEN_FORCE))
+def test_solid_force_edge_pass_matches_twin(mode):
+    """B6 by edges: the columns of a (24, E) batch of a permuted box as
+    corners (8, 3, E) through B4's pass by edges (the Gauss loop into edge
+    sums, the mass on u's column read again) == hex8_force_ref."""
+    model, mcoef, stiff = _GEN_FORCE[mode]
+    X24, u24, _ = _permuted_batches((3, 2, 2), 58)
+    E = X24.shape[1]
+    cell = get_cell("hex8")
+    dN, w, N = (torch.as_tensor(t) for t in (cell.dN, cell.gauss_weights,
+                                             cell.N))
+    lam, mu = lame(E_MOD, NUE)
+    fe = _force_gen_edges(X24.reshape(8, 3, E), u24.reshape(8, 3, E), dN, w,
+                          N, lam, mu, model, mcoef, stiff)
+    want = sops.hex8_force_ref(X24, u24, lam, mu, model, mcoef, stiff)
     _close(fe.reshape(24, E), want)
 
 

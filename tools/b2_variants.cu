@@ -15,6 +15,7 @@
 // element pass alone; b2v_gather launches gather_kernel alone.
 
 #include "lattice_kernels.cu"
+#include "dense_passes.cuh"
 
 namespace b2v {
 using namespace fourc;

@@ -24,6 +24,7 @@
 // launches gather_kernel alone.
 
 #include "lattice_kernels.cu"
+#include "dense_passes.cuh"
 
 namespace b5v {
 using namespace fourc;

@@ -80,6 +80,7 @@ def build(report=True):
     out = ROOT / "build" / "tools" / "libb5_variants.so"
     log = out.with_suffix(".log")
     srcs = [ROOT / "tools" / "b5_variants.cu",
+            ROOT / "tools" / "dense_passes.cuh",
             *(cb.CSRC / s for s in ("lattice_kernels.cu", cb.HEADER))]
     if not (out.exists() and log.exists() and out.stat().st_mtime
             > max(s.stat().st_mtime for s in srcs)):

@@ -21,6 +21,7 @@
 
 #include "lattice_kernels.cu"
 #include "solid_kernels.cu"
+#include "dense_passes.cuh"
 
 namespace b7b4 {
 using namespace fourc;

@@ -88,6 +88,7 @@ def build():
     out = ROOT / "build" / "tools" / "libb7_b4_variants.so"
     log = out.with_suffix(".log")
     srcs = [ROOT / "tools" / "b7_b4_variants.cu",
+            ROOT / "tools" / "dense_passes.cuh",
             *(cb.CSRC / s for s in (*cb.SOURCES, cb.HEADER))]
     if not (out.exists() and log.exists() and out.stat().st_mtime
             > max(s.stat().st_mtime for s in srcs)):
@@ -262,7 +263,8 @@ class B4Case:
         return (*cs._bound("force_gen", mode, n, ins), old)
 
 
-def _check_case(kernel, label, case, modes, call, dtype, tol):
+def _check_case(kernel, label, case, modes, call, dtype, tol,
+                variants=VARIANTS):
     """Every variant against the twin in every mode; float32 also against
     the float64 twin on the same inputs."""
     worst = 0.0
@@ -271,7 +273,7 @@ def _check_case(kernel, label, case, modes, call, dtype, tol):
         want = case.twin(mode)
         want64 = case.twin(mode, torch.float64) \
             if dtype == torch.float32 else None
-        for name in VARIANTS + ["twin"]:
+        for name in variants + ["twin"]:
             got = want if name == "twin" else call(name, mode)()
             torch.cuda.synchronize()
             if want64 is not None:

@@ -9,12 +9,12 @@ Usage, from the repository root on a machine with a CUDA device and nvcc:
 Runs the path as chip_smoke.py does (n=72, or n=56 on the permuted box,
 float32: the initial state, one warm-up and 5 steps) with the wrappers of
 its kernels wrapped in counters: B3 ``stencil_matvec`` (GMG levels and the
-mass) and B2 ``neo_tangent`` (the tangent, with the mass in the Krylov
-operator) on the flagship; B5 ``neo_tangent_gen`` (the Neo-Hooke tangent
-with the mass, and the linear mode of the GMG levels) and B4
-``neo_force_gen`` (the force, and the mass alone) on the jittered box; B7
-``hex8_tangent`` and B6 ``hex8_force`` (the force, and the mass alone) on
-the permuted box.  Then times one call of each kind (mode, size) as a CUDA
+mass), B2 ``neo_tangent`` (the tangent, with the mass in the Krylov
+operator) and B1 ``neo_force`` on the flagship; B5 ``neo_tangent_gen`` (the
+Neo-Hooke tangent with the mass, and the linear mode of the GMG levels) and
+B4 ``neo_force_gen`` (the force, and the mass alone) on the jittered box;
+B7 ``hex8_tangent`` and B6 ``hex8_force`` (the force, and the mass alone)
+on the permuted box.  Then times one call of each kind (mode, size) as a CUDA
 graph of 20 calls on the inputs it was first called with, and prints
 launches, time, the bound of chip_smoke.py and launches x (time - bound).
 With ``--old`` on the jittered box it also builds tools/b5_variants.cu,
@@ -41,6 +41,10 @@ from fourc_tpu_torch.physics import solid as ps  # noqa: E402
 
 def _stencil_kind(K, v):
     return "y = A v", v.shape[1] - 3
+
+
+def _force_kind(u, G, wdet, lam, mu, model="neohooke"):
+    return model, u.shape[1] - 3
 
 
 def _tangent_kind(u, v, G, wdet, N, lam, mu, model="neohooke", mcoef=0.0):
@@ -82,7 +86,8 @@ def _solid_tangent_kind(X24, u24, v24, lam, mu, model="neohooke", mcoef=0.0):
 # how many leading arguments its bound reads
 WRAPPED = {
     "flagship": {"stencil_matvec": (lk, "stencil", _stencil_kind, 2),
-                 "neo_tangent": (lk, "tangent", _tangent_kind, 2)},
+                 "neo_tangent": (lk, "tangent", _tangent_kind, 2),
+                 "neo_force": (lk, "force", _force_kind, 1)},
     "jittered": {"neo_tangent_gen": (lk, "tangent_gen", _tangent_gen_kind,
                                      3),
                  "neo_force_gen": (lk, "force_gen", _force_gen_kind, 2)},
