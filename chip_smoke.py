@@ -33,7 +33,20 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    n=56, 555,579 dofs, with its nodes renumbered at random: general
    topology, flat dof vectors, gather and incidence assembly, SA-AMG with
    its setup timed stage by stage) the same way, B6-B7 launched and none of
-   B1-B5.
+   B1-B5;
+8. decks, through the deck-driven entry points (fourc_tpu_torch.app.main and
+   physics/driver.py):
+   (a) the two gate decks, decks/solid_genalpha_lattice.yaml and
+       decks/solid_unstructured_amg.yaml, in float64 on the card through
+       ``app.main.main``: every RESULT DESCRIPTION anchor passes (1/1, 6/6);
+   (b) those two and a jittered variant of the lattice deck (B4-B5) through
+       ``driver.run`` on the card and on the CPU (twins): final d, v, a
+       agree to STEP_TOL, each deck launching its path's kernels on the card;
+   (c) ``--ngroup 2`` on the AMG deck on the card: bitwise-identical runs;
+   (d) the flagship problem of phase 5 as a deck dict (n=72, float32, 6
+       steps) through ``driver.run``: the same Newton and CG counts in every
+       step as phase 5's warm-up and timed steps, B1-B3 launched and none of
+       B4-B7, its ms/step printed beside phase 5's.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last three lines are a JSON object with per-kernel results (launches on
@@ -41,6 +54,8 @@ its path, errors, times, the bound and what sets it), the ``nvidia-smi``
 name/power-limit line and ``{"ok": true, "device": ...}``.
 """
 
+import contextlib
+import io
 import json
 import re
 import shutil
@@ -51,8 +66,10 @@ import warnings
 
 import numpy as np
 import torch
+import yaml
 
 from fourc_tpu_torch import materials
+from fourc_tpu_torch.app import main as app_main
 from fourc_tpu_torch.core import cells, conditions, functions, gridgen
 from fourc_tpu_torch.materials.elastic import lame
 from fourc_tpu_torch.ops import cuda_build
@@ -60,6 +77,7 @@ from fourc_tpu_torch.ops import lattice as lat
 from fourc_tpu_torch.ops import lattice_kernels as lk
 from fourc_tpu_torch.ops import solid as sops
 from fourc_tpu_torch.ops import solid_kernels as sk
+from fourc_tpu_torch.physics import driver
 from fourc_tpu_torch.physics import solid as ps
 
 F64_TOL, F32_TOL, STEP_TOL = 1e-10, 1e-4, 1e-9
@@ -172,6 +190,14 @@ def launches():
 def reset_launches():
     lk.reset_launches()
     sk.reset_launches()
+
+
+def _check_launched(label, path, counts):
+    """The kernels of ``path`` were launched, no other kernel was."""
+    for k, (num, *_, kpath) in KERNELS.items():
+        if (kpath == path) != (counts[k] > 0):
+            raise RuntimeError(f"{label}: kernel {num} {k} was launched "
+                               f"{counts[k]} times")
 
 
 def log(phase, msg):
@@ -625,7 +651,8 @@ def _log_amg(name, M):
 
 
 def phase_main_path(name, n_steps=5):
-    """One path at full size; returns the launches of its run."""
+    """One path at full size; returns the launches of its run and what the
+    deck phase compares with: (Newton, CG) of every step, max|d|, ms/step."""
     n = FULL_N[name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -680,12 +707,134 @@ def phase_main_path(name, n_steps=5):
               f"max|d| {float(d.abs().max()):.4e}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(name, f"launches {counts}")
-    for k, (num, *_, path) in KERNELS.items():
-        if (path == name) != (counts[k] > 0):
-            raise RuntimeError(
-                f"kernel {num} {k} was launched {counts[k]} times on the "
-                f"{name} path")
-    return counts
+    _check_launched(f"the {name} path", name, counts)
+    return counts, {"steps": [(st["iters"], st["lin_iters"])
+                              for st in all_stats],
+                    "max_d": float(d.abs().max()), "ms": ms}
+
+
+GATE_DECKS = {"decks/solid_genalpha_lattice.yaml": ("flagship", 1),
+              "decks/solid_unstructured_amg.yaml": ("permuted", 6)}
+
+
+def _cli(args):
+    """``app.main.main(args)``, its output printed; returns rc and output."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = app_main.main(args)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log("deck", line)
+    return rc, out
+
+
+def jittered_deck():
+    """The lattice gate deck with its interior nodes jittered (general
+    geometry on the lattice: B4-B5 and GMG), 2 steps."""
+    with open("decks/solid_genalpha_lattice.yaml") as fh:
+        data = yaml.safe_load(fh)
+    data["geometry"]["generator"]["jitter"] = 0.3
+    data["structural_dynamic"]["numstep"] = 2
+    return data
+
+
+def flagship_deck(n, n_steps):
+    """build_problem's flagship problem (float32 Newton settings) as a
+    deck."""
+    ndof = 3 * (n + 1) ** 3
+    return {
+        "problem": {"type": "structure", "dtype": "float32"},
+        "structural_dynamic": {
+            "dynamictype": "genalpha", "kinem": "nonlinear", "rho_inf": 0.9,
+            "timestep": 0.02, "numstep": n_steps, "maxiter": 12,
+            "tolres": 1.5e-4 * ndof ** 0.5, "tolres_rel": 1e-4,
+            "toldisp": 1e-7 * ndof ** 0.5, "normcombi": "or"},
+        "solver": {"method": "cg", "precond": "gmg", "maxiter": 1000,
+                   "rtol": 1e-4},
+        "materials": {1: {"type": "neohooke", "youngs": 1.0e4, "nue": 0.3,
+                          "density": 1.0}},
+        "functions": {1: "sin(50.0*t)*(1-exp(-t/0.06))"},
+        "geometry": {"generator": {"kind": "box", "nx": n, "ny": n, "nz": n,
+                                   "cell": "hex8", "mat": 1}},
+        "conditions": {
+            "dirichlet": [{"nodes": "zmin", "onoff": [1, 1, 1],
+                           "val": [0, 0, 0]}],
+            "neumann": [{"faces": "zmax", "onoff": [1, 0, 0],
+                         "val": [400.0, 0, 0], "funct": [1, 0, 0]}]},
+    }
+
+
+def phase_decks(flagship):
+    """The deck-driven entry points; ``flagship`` is phase 5's record."""
+    # (a) the gate decks through the CLI on the card
+    for path, (_, n_tests) in GATE_DECKS.items():
+        rc, out = _cli([path, "--device", "cuda"])
+        if rc != 0 or f"result tests: {n_tests}/{n_tests} passed" not in out:
+            raise RuntimeError(f"{path}: rc {rc}, RESULT DESCRIPTION not met "
+                               f"on the card")
+    # (b) GPU kernels against CPU twins through driver.run, float64
+    decks = {path: (path, kpath) for path, (kpath, _) in GATE_DECKS.items()}
+    decks["jittered lattice deck"] = (jittered_deck(), "jittered")
+    for label, (src, kpath) in decks.items():
+        states = {}
+        for device in ("cuda", "cpu"):
+            reset_launches()
+            res = driver.run(src, device=device)
+            view = res.fields["structure"]
+            states[device] = view.flat_state(res.states["structure"])
+            if device == "cuda":
+                _check_launched(label, kpath, launches())
+        for k in ("d", "v", "a"):
+            got, want = states["cuda"][k].cpu(), states["cpu"][k]
+            rel = float((got - want).abs().max() / want.abs().max())
+            log("deck", f"{label} float64, GPU kernels vs CPU twins: {k} max "
+                        f"rel err {rel:.3e} (tol {STEP_TOL:g})")
+            if not rel <= STEP_TOL:
+                raise RuntimeError(f"{label}: GPU run disagrees with the CPU "
+                                   f"run on {k}")
+    # (c) determinism on the card
+    rc, out = _cli(["decks/solid_unstructured_amg.yaml", "--device", "cuda",
+                    "--ngroup", "2"])
+    if rc != 0 or "diffgroup: 2 groups bitwise identical" not in out:
+        raise RuntimeError("--ngroup 2: the two runs on the card differ")
+    # (d) the flagship problem as a deck, at full width
+    n, steps = FULL_N["flagship"], len(flagship["steps"])
+    marks, totals = [], [(0, 0)]
+
+    def record(name, state, agg):  # after each step: time, running counts
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        totals.append((agg["newton_iters"], agg["lin_iters"]))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = driver.run(flagship_deck(n, steps), device="cuda",
+                     callbacks=[record])
+    torch.cuda.synchronize()
+    counts = launches()
+    log("deck", f"flagship deck n={n}: run {time.perf_counter() - t0:.1f} s "
+                f"(deck, field, initial state, GMG and {steps} steps)")
+    _check_launched("flagship deck", "flagship", counts)
+    per_step = [(a[0] - b[0], a[1] - b[1])
+                for a, b in zip(totals[1:], totals[:-1])]
+    for i, (got, want) in enumerate(zip(per_step, flagship["steps"])):
+        log("deck", f"flagship deck step {i}: newton {got[0]}, cg {got[1]} "
+                    f"(phase 5: newton {want[0]}, cg {want[1]})")
+    if per_step != flagship["steps"]:
+        raise RuntimeError("flagship deck: Newton/CG counts differ from "
+                           "phase 5's")
+    d = res.states["structure"]["d"]
+    if not torch.isfinite(d).all():
+        raise RuntimeError("flagship deck: non-finite displacement")
+    t = res.timers
+    loop_ms = 1e3 * (t.total["step"] - t.total["make_step"]) / steps
+    ms = 1e3 * (marks[-1] - marks[0]) / (steps - 1)
+    log("deck", f"flagship deck: {ms:.1f} ms/step over steps 1-{steps - 1} "
+                f"(phase 5: {flagship['ms']:.1f} ms/step over its timed "
+                f"steps); time_loop {loop_ms:.1f} ms/step over all {steps} "
+                f"without the GMG setup; max|d| {float(d.abs().max()):.4e} "
+                f"(phase 5: {flagship['max_d']:.4e})")
+    log("deck", f"launches {counts}")
 
 
 def main():
@@ -693,7 +842,9 @@ def main():
     phase_build()
     results = phase_kernels()
     phase_correctness()
-    counts = {name: phase_main_path(name) for name in FULL_N}
+    runs = {name: phase_main_path(name) for name in FULL_N}
+    counts = {name: run[0] for name, run in runs.items()}
+    phase_decks(runs["flagship"][1])
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

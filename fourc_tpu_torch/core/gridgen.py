@@ -20,9 +20,10 @@ def box(nx: int, ny: int, nz: int, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 1.0),
     """nx*ny*nz-element rectangular cuboid of hex8 cells."""
     if cell != "hex8":
         raise NotImplementedError(f"box cell {cell!r} is not ported (hex8 is)")
-    xs = np.linspace(lo[0], hi[0], nx + 1)
-    ys = np.linspace(lo[1], hi[1], ny + 1)
-    zs = np.linspace(lo[2], hi[2], nz + 1)
+    # lo + (hi - lo) * i / n, the reference's native formula, so that the
+    # coordinates are the reference's to the last bit
+    xs, ys, zs = (lo[a] + (hi[a] - lo[a]) * np.arange(n + 1.0) / n
+                  for a, n in enumerate((nx, ny, nz)))
     X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
     coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
     disc = Discretization(name=name, coords=coords)

@@ -37,6 +37,10 @@ class ElementBlock:
         mid = 0 if self.mat_id is None else self.mat_id
         self.mat_id = np.broadcast_to(np.asarray(mid, np.int32), (n,)).copy()
 
+    @property
+    def n_ele(self):
+        return self.conn.shape[0]
+
 
 @dataclass
 class FaceBlock:
@@ -74,6 +78,25 @@ class Discretization:
     @property
     def n_nodes(self):
         return self.coords.shape[0]
+
+    @property
+    def n_elements(self):
+        return sum(b.n_ele for b in self.blocks.values())
+
+    def add_block(self, cell: str, conn, mat_id=None, key: str | None = None):
+        """Add elements of one cell type under ``key`` (default: the cell
+        name), appended to the block already stored under that key."""
+        key = key or cell
+        if key in self.blocks:
+            old = self.blocks[key]
+            conn = np.concatenate([old.conn, np.asarray(conn, np.int32)],
+                                  axis=0)
+            mat = np.concatenate([old.mat_id, np.broadcast_to(
+                np.asarray(mat_id or 0, np.int32),
+                (len(conn) - old.n_ele,))])
+            self.blocks[key] = ElementBlock(cell, conn, mat)
+        else:
+            self.blocks[key] = ElementBlock(cell, conn, mat_id)
 
     def dofmap(self, ndpn: int) -> "DofMap":
         return DofMap.build(self, ndpn)

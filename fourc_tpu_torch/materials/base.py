@@ -32,8 +32,9 @@ def make_material(spec: dict):
     try:
         cls = MATERIAL_REGISTRY[typ]
     except KeyError:
-        raise KeyError(f"material type {typ!r} is not ported; ported: "
-                       f"{sorted(MATERIAL_REGISTRY)}") from None
+        raise NotImplementedError(
+            f"material type {typ!r} is not ported; ported: "
+            f"{sorted(MATERIAL_REGISTRY)}") from None
     return cls(**spec)
 
 

@@ -1,0 +1,141 @@
+"""Global problem driver: deck -> field -> time loop -> result tests.
+
+Counterpart of fourc_tpu/physics/driver.py for structure problems: ``run``
+dispatches a deck, ``time_loop`` advances a field with the reference's
+DIVERCONT handling, ``newton_params_from`` maps the deck's Newton and solver
+settings.  Every other problem type, the error-controlled adaptive time
+loop, sharding over several devices and restarts are not ported.
+
+The host loop only calls step functions, reads the convergence flag they
+return, refines the time step on divergence and calls the callbacks; the
+numerics stay on the field's device.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+from fourc_tpu_torch.io import deck as deck_mod
+from fourc_tpu_torch.physics.newton import NewtonParams
+from fourc_tpu_torch.utils.timer import Timers
+
+
+@dataclass
+class RunResult:
+    deck: object
+    fields: dict  # name -> field view (node_value)
+    states: dict  # name -> final state dict
+    stats: dict = field(default_factory=dict)  # special quantities
+    timers: object = None
+
+    def query(self, fieldname, quantity, node):
+        name = fieldname or next(iter(self.fields))
+        f = self.fields[name]
+        return f.node_value(self.states[name], quantity, node)
+
+    def query_special(self, fieldname, quantity):
+        name = fieldname or next(iter(self.fields))
+        return self.stats[name][quantity]
+
+
+def run(deck_src, callbacks=None, device="cuda") -> RunResult:
+    """Run a deck end to end on ``device`` (the CUDA card unless the CPU is
+    asked for).  deck_src: path | yaml str | dict | Deck."""
+    deck = deck_src if isinstance(deck_src, deck_mod.Deck) else deck_mod.load(deck_src)
+    if deck.problem_type != "structure":
+        raise NotImplementedError(
+            f"problem type {deck.problem_type!r} is not ported (structure is)")
+    from fourc_tpu_torch.physics import structure_driver
+
+    return structure_driver.run(deck, callbacks=callbacks, device=device)
+
+
+def time_loop(
+    fieldname,
+    state,
+    make_step,  # dt -> step fn (state -> (state, stats))
+    dt0: float,
+    n_steps: int,
+    divercont: str = "stop",
+    max_levels: int = 5,
+    callbacks=None,
+    timers: Timers | None = None,
+    verbose: bool = True,
+):
+    """Run n_steps of size dt0, refining dt on divergence per DIVERCONT.
+
+    One step function per dt, built on first use (each builds its own
+    preconditioner: the mass shift depends on dt).  Returns
+    (state, aggregate_stats dict).
+    """
+    timers = timers or Timers()
+    step_fns = {}
+
+    def get_step(dt):
+        if dt not in step_fns:
+            with timers("make_step"):
+                step_fns[dt] = make_step(dt)
+        return step_fns[dt]
+
+    agg = {"newton_iters": 0, "lin_iters": 0, "steps": 0, "substeps": 0,
+           "resnorm": 0.0, "halvings": 0}
+
+    def try_advance(state, dt, level):
+        """Advance by dt, recursively halving on divergence."""
+        st_new, stats = get_step(dt)(state)
+        ok = bool(stats["converged"])
+        if ok:
+            agg["newton_iters"] += int(stats["iters"])
+            agg["lin_iters"] += int(stats["lin_iters"])
+            agg["substeps"] += 1
+            agg["resnorm"] = float(stats["resnorm"])
+            return st_new
+        if divercont == "continue":
+            agg["substeps"] += 1
+            return st_new
+        if divercont in ("halve_step", "adapt_step") and level < max_levels:
+            agg["halvings"] += 1
+            half = try_advance(state, dt / 2, level + 1)
+            return try_advance(half, dt / 2, level + 1)
+        raise RuntimeError(
+            f"{fieldname}: nonlinear solver diverged at t={float(state['t']):g} "
+            f"(resnorm={float(stats['resnorm']):g}); DIVERCONT={divercont} exhausted"
+        )
+
+    t_wall = time.perf_counter()
+    for k in range(n_steps):
+        with timers("step"):
+            state = try_advance(state, dt0, 0)
+        agg["steps"] += 1
+        if callbacks:
+            for cb in callbacks:
+                cb(fieldname, state, agg)
+    agg["walltime"] = time.perf_counter() - t_wall
+    if verbose:
+        print(
+            f"[{fieldname}] {agg['steps']} steps ({agg['substeps']} substeps), "
+            f"{agg['newton_iters']} Newton its, {agg['lin_iters']} Krylov its, "
+            f"{agg['walltime']:.3f}s wall"
+        )
+    return state, agg
+
+
+def newton_params_from(dyn: dict, solver: dict) -> NewtonParams:
+    """The deck's Newton and linear-solver settings.  The solver method
+    (only CG is ported), GMRES's restart length and the debug table of io
+    verbosity 'debug' have no field here: the structure driver refuses
+    decks that set them."""
+    return NewtonParams(
+        max_iter=dyn["maxiter"],
+        tol_res=dyn["tolres"],
+        tol_res_rel=dyn.get("tolres_rel", 0.0),
+        tol_disp=dyn["toldisp"],
+        combine=dyn["normcombi"],
+        lin_maxiter=solver["maxiter"],
+        lin_rtol=solver["rtol"],
+        lin_adaptive=solver["adaptive"],
+        line_search=dyn.get("linesearch", False),
+        ptc=dyn.get("nlnsol", "fullnewton") == "ptc",
+        ptc_dt0=dyn.get("ptc_dt0", 1.0),
+    )

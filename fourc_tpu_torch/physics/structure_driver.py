@@ -1,0 +1,185 @@
+"""Structure problem driver: deck -> SolidField -> time loop.
+
+Counterpart of fourc_tpu/physics/structure_driver.py for the solid field the
+port carries: one hex8 block of a law with a kernel (Neo-Hooke, SVK),
+nonlinear kinematics, gen-alpha with consistent mass, Newton with CG and a
+multigrid preconditioner (``gmg`` on a lattice, ``amg`` or ``gmg``'s SA-AMG
+fallback on general topology), Dirichlet conditions and surface tractions.
+``check_supported`` names every setting of a deck that the reference
+honours and the port does not carry, before anything is built; the deck
+keys that the reference ignores for a structure problem stay ignored.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fourc_tpu_torch.core.device import resolve_device
+from fourc_tpu_torch.core.mesh import _detect_structured
+from fourc_tpu_torch.materials import make_material
+from fourc_tpu_torch.ops.lattice import material_model
+from fourc_tpu_torch.physics import driver as drv
+from fourc_tpu_torch.physics import solid as ps
+from fourc_tpu_torch.physics.solid_lattice import from_lattice_state
+from fourc_tpu_torch.utils.timer import Timers
+
+
+def solid_params_from(deck) -> ps.SolidParams:
+    dyn = deck.sections["structural_dynamic"]
+    solver = deck.sections["solver"]
+    return ps.SolidParams(
+        kinem=dyn["kinem"],
+        tech=dyn["tech"],
+        dyntype=dyn["dynamictype"],
+        dt=dyn["timestep"],
+        genalpha=ps.GenAlphaParams(rho_inf=dyn["rho_inf"]),
+        newton=drv.newton_params_from(dyn, solver),
+        precond=solver["precond"],
+        mass="lumped" if dyn["lumpmass"] else "consistent",
+        rayleigh_alpha=dyn["m_damp"],
+        rayleigh_beta=dyn["k_damp"],
+        predictor=dyn["predict"],
+    )
+
+
+def check_supported(deck, disc_name="structure"):
+    """Raise NotImplementedError naming every setting of ``deck`` that the
+    reference honours and the port does not carry.  Cheap: reads the deck
+    and the connectivity, builds nothing."""
+    prob = deck.problem
+    dyn = deck.sections["structural_dynamic"]
+    solver = deck.sections["solver"]
+    io_cfg = deck.sections["io"]
+    out = []
+    if prob["nshard"] > 1:
+        out.append(f"problem.nshard {prob['nshard']} (one card)")
+    if prob["restart"]:
+        out.append("problem.restart")
+    if dyn["dynamictype"] != "genalpha":
+        out.append(f"dynamictype {dyn['dynamictype']!r} (genalpha is ported)")
+    if dyn["kinem"] != "nonlinear":
+        out.append(f"kinem {dyn['kinem']!r}")
+    if dyn["tech"] != "none":
+        out.append(f"tech {dyn['tech']!r}")
+    for key in ("lumpmass", "m_damp", "k_damp"):
+        if dyn[key]:
+            out.append(f"{key} {dyn[key]!r}")
+    if dyn["prestress"] != "none":
+        out.append(f"prestress {dyn['prestress']!r}")
+    if dyn["timada_kind"] != "none":
+        out.append(f"timada_kind {dyn['timada_kind']!r}")
+    if solver["method"] != "cg":
+        out.append(f"solver.method {solver['method']!r} (cg is ported)")
+    if solver["method"] != "direct" and solver["precond"] not in ("gmg",
+                                                                  "amg"):
+        out.append(f"solver.precond {solver['precond']!r} (gmg and amg are "
+                   f"ported)")
+    for key in ("write_vtu", "write_ensight", "monitor", "restart_interval"):
+        if io_cfg[key]:
+            out.append(f"io.{key}")
+    if io_cfg["verbosity"] == "debug":
+        out.append("io.verbosity 'debug'")
+    others = sorted(set(deck.disc) - {disc_name})
+    if others:
+        out.append(f"discretizations {others} (beam, shell or constraint "
+                   f"fields)")
+    mats = {}
+    for mid, spec in deck.materials.items():
+        try:
+            mats[mid] = make_material(spec)
+        except NotImplementedError as e:
+            out.append(str(e))
+    disc = deck.disc.get(disc_name)
+    if disc is not None:
+        blocks = list(disc.blocks.values())
+        if (len(blocks) != 1 or blocks[0].cell != "hex8"
+                or disc.dim != 3):
+            out.append(f"element blocks {[b.cell for b in blocks]} (one "
+                       f"hex8 block in 3D is ported)")
+        for blk in blocks:
+            for mid in np.unique(blk.mat_id):
+                m = mats.get(int(mid))
+                if m is not None and material_model(m) is None:
+                    out.append(f"material {int(mid)} "
+                               f"{deck.materials[int(mid)]['type']!r} (no "
+                               f"kernel: neohooke and stvenantkirchhoff "
+                               f"have one)")
+        if solver["precond"] == "amg" and any(
+                _detect_structured(disc, b) is not None for b in blocks):
+            out.append("solver.precond 'amg' on a lattice mesh (SA-AMG is "
+                       "ported for general topology; a lattice takes 'gmg')")
+    for nb in deck.conditions.get(disc_name, {}).get("neumann", ()):
+        if nb.kind != "traction":
+            out.append(f"neumann kind {nb.kind!r}")
+        cells = sorted({fb.cell for fb in nb.faces} - {"quad4"})
+        if cells:
+            out.append(f"neumann faces {cells}")
+    for t in deck.result_tests:
+        q = str(t.get("quantity", "")).lower()
+        if q.startswith("stress_"):
+            out.append(f"result quantity {q!r} (nodal stresses)")
+    if out:
+        raise NotImplementedError("not ported: " + "; ".join(out))
+
+
+def build_field(deck, disc_name="structure", device="cuda") -> ps.SolidField:
+    disc = deck.disc[disc_name]
+    materials = {mid: make_material(spec) for mid, spec in deck.materials.items()}
+    conds = deck.conditions.get(disc_name, {})
+    return ps.SolidField(
+        disc, materials, solid_params_from(deck),
+        dirichlet=conds.get("dirichlet", ()),
+        neumann=conds.get("neumann", ()),
+        functions=deck.functions, device=device,
+        dtype=getattr(torch, deck.problem["dtype"]),  # float64 by default
+    )
+
+
+def run(deck, callbacks=None, device="cuda") -> drv.RunResult:
+    device = resolve_device(device)
+    check_supported(deck)
+    timers = Timers()
+    with timers("setup"):
+        f = build_field(deck, device=device)
+        state = ps.compute_initial_state(f, ps.init_state(f))
+    dyn = deck.sections["structural_dynamic"]
+    n_steps = dyn["numstep"]
+    if dyn["maxtime"] is not None:
+        n_steps = int(round(dyn["maxtime"] / dyn["timestep"]))
+    state, agg = drv.time_loop(
+        "structure", state, lambda dt: ps.make_step(f, dt), dyn["timestep"],
+        n_steps, divercont=dyn["divercont"],
+        max_levels=dyn["maxdivconrefinementlevel"],
+        callbacks=list(callbacks or []), timers=timers,
+    )
+    return drv.RunResult(
+        deck=deck, fields={"structure": SolidFieldView(f)},
+        states={"structure": state},
+        stats={"structure": agg}, timers=timers,
+    )
+
+
+class SolidFieldView:
+    """Result-test access to a solid field: nodal displacement, velocity
+    and acceleration components, read from flat dof vectors (a lattice
+    field's state is in the padded lattice layout)."""
+
+    _VEC = {"disp": "d", "vel": "v", "acc": "a"}
+    _COMP = {"x": 0, "y": 1, "z": 2}
+
+    def __init__(self, f):
+        self.f = f
+
+    def flat_state(self, state):
+        return from_lattice_state(self.f, state)
+
+    def node_value(self, state, quantity: str, node: int):
+        q = quantity.lower()
+        if q.startswith("stress_"):
+            raise NotImplementedError(f"{quantity!r}: nodal stresses are "
+                                      f"not ported")
+        if q[:-1] in self._VEC and q[-1] in self._COMP:
+            vec = self.flat_state(state)[self._VEC[q[:-1]]]
+            return float(vec.reshape(-1, self.f.ndpn)[node, self._COMP[q[-1]]])
+        raise KeyError(f"unknown structure quantity {quantity!r}")

@@ -1,0 +1,228 @@
+"""Deck-driven entry point of the port: loader, driver, result tests, CLI.
+
+The two gate decks run through ``fourc_tpu_torch.app.main`` on the CPU in
+float64 (the kernels' twins) and must meet the RESULT DESCRIPTION anchors
+that the JAX package wrote into them.  The loader is held against
+``fourc_tpu.io.deck.load`` (numpy loading, no jit): meshes, sets, validated
+sections, conditions and FUNCTs must be identical.  Every other structure
+deck in the repository is refused with NotImplementedError before the field
+is built.
+"""
+
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from fourc_tpu_torch.app.main import main
+from fourc_tpu_torch.core import gridgen
+from fourc_tpu_torch.io import deck as deck_mod
+from fourc_tpu_torch.io import result_test
+from fourc_tpu_torch.physics import driver, structure_driver
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+LATTICE = os.path.join(ROOT, "decks", "solid_genalpha_lattice.yaml")
+AMG = os.path.join(ROOT, "decks", "solid_unstructured_amg.yaml")
+HEX8_DYNAMIC = os.path.join(ROOT, "decks", "ref_converted",
+                            "solid_ele_hex8_standard_dynamic.yaml")
+GATE_DECKS = {LATTICE: 1, AMG: 6}  # deck -> number of anchors
+
+
+def _structure_decks():
+    out = []
+    for path in sorted(glob.glob(os.path.join(ROOT, "decks", "*.yaml"))
+                       + glob.glob(os.path.join(ROOT, "decks",
+                                                "ref_converted", "*.yaml"))):
+        with open(path) as fh:
+            data = yaml.safe_load(fh)
+        ptype = str((data.get("problem") or {}).get("type", "structure"))
+        if ptype.lower() == "structure" and path not in GATE_DECKS:
+            out.append(path)
+    return out
+
+
+@pytest.mark.parametrize("path", list(GATE_DECKS),
+                         ids=lambda p: os.path.basename(p))
+def test_gate_deck_meets_its_anchors(path, capsys):
+    assert main([path, "--device", "cpu"]) == 0
+    n = GATE_DECKS[path]
+    out = capsys.readouterr().out
+    assert f"result tests: {n}/{n} passed" in out
+    assert "FAIL" not in out
+
+
+def test_ngroup_runs_are_bitwise_identical(capsys):
+    assert main([LATTICE, "--device", "cpu", "--ngroup", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "diffgroup: 2 groups bitwise identical" in out
+    assert "result tests: 1/1 passed" in out
+
+
+def test_explicit_geometry_deck_meets_the_amg_anchors():
+    """The AMG deck's mesh written out as explicit nodes, elements and sets
+    (the box, jittered and renumbered as the generator does) gives the
+    same anchors."""
+    disc = gridgen.box(6, 6, 6)
+    deck_mod._general_topology(disc, 0.3, True)
+    with open(AMG) as fh:
+        data = yaml.safe_load(fh)
+    data["geometry"] = {
+        "nodes": disc.coords.tolist(),
+        "elements": {"hex8": {"conn": disc.blocks["hex8"].conn.tolist(),
+                              "mat": 1}},
+        "node_sets": {"zmin": disc.node_sets["zmin"].tolist()},
+        "face_sets": {"zmax": {"quad4": disc.face_sets["zmax"][0].conn
+                               .tolist()}},
+    }
+    res = driver.run(data, device="cpu")
+    assert res.fields["structure"].f.X24 is not None  # general topology
+    tests = result_test.run_result_tests(res.deck.result_tests, res)
+    assert len(tests) == 6 and all(t.ok for t in tests), [str(t) for t in tests]
+
+
+def _fake_make_step(made):
+    """Steps that converge only for dt <= 0.25."""
+    def make_step(dt):
+        made.append(dt)
+
+        def step(state):
+            return {"t": state["t"] + dt}, {"converged": dt <= 0.25,
+                                            "iters": 1, "lin_iters": 2,
+                                            "resnorm": 0.5}
+        return step
+    return make_step
+
+
+@pytest.mark.parametrize("divercont", ["halve_step", "adapt_step"])
+def test_time_loop_halves_the_step_on_divergence(divercont):
+    made = []
+    state, agg = driver.time_loop("f", {"t": 0.0}, _fake_make_step(made),
+                                  1.0, 2, divercont=divercont, verbose=False)
+    assert state["t"] == 2.0
+    assert made == [1.0, 0.5, 0.25]  # one step function per dt
+    assert (agg["steps"], agg["substeps"], agg["halvings"],
+            agg["newton_iters"]) == (2, 8, 6, 8)
+    with pytest.raises(RuntimeError, match="exhausted"):
+        driver.time_loop("f", {"t": 0.0}, _fake_make_step([]), 1.0, 1,
+                         divercont=divercont, max_levels=1, verbose=False)
+
+
+def test_time_loop_stop_and_continue_on_divergence():
+    with pytest.raises(RuntimeError, match="DIVERCONT=stop"):
+        driver.time_loop("f", {"t": 0.0}, _fake_make_step([]), 1.0, 1,
+                         verbose=False)
+    state, agg = driver.time_loop("f", {"t": 0.0}, _fake_make_step([]), 1.0,
+                                  2, divercont="continue", verbose=False)
+    assert state["t"] == 2.0
+    assert (agg["substeps"], agg["newton_iters"]) == (2, 0)
+
+
+def _same_faces(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.cell == b.cell
+        np.testing.assert_array_equal(a.conn, b.conn)
+
+
+@pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC],
+                         ids=lambda p: os.path.basename(p))
+def test_loader_matches_reference(path):
+    from fourc_tpu.io import deck as jdeck
+
+    got, want = deck_mod.load(path), jdeck.load(path)
+    assert got.problem == want.problem
+    for key, sec in got.sections.items():
+        if key not in ("geometry", "conditions"):
+            assert sec == want.sections[key], key
+    assert got.materials == want.materials
+    assert got.result_tests == want.result_tests
+    assert got.disc.keys() == want.disc.keys()
+    for name, d in got.disc.items():
+        w = want.disc[name]
+        np.testing.assert_array_equal(d.coords, np.asarray(w.coords))
+        assert d.n_elements == w.n_elements
+        assert d.blocks.keys() == w.blocks.keys()
+        for key, blk in d.blocks.items():
+            assert blk.cell == w.blocks[key].cell
+            np.testing.assert_array_equal(blk.conn, w.blocks[key].conn)
+            np.testing.assert_array_equal(blk.mat_id, w.blocks[key].mat_id)
+        assert d.node_sets.keys() == w.node_sets.keys()
+        for nm, ids in d.node_sets.items():
+            np.testing.assert_array_equal(ids, w.node_sets[nm])
+        assert d.face_sets.keys() == w.face_sets.keys()
+        for nm, fbs in d.face_sets.items():
+            _same_faces(fbs, w.face_sets[nm])
+    assert got.conditions.keys() == want.conditions.keys()
+    for name, conds in got.conditions.items():
+        wc = want.conditions[name]
+        assert len(conds["dirichlet"]) == len(wc["dirichlet"])
+        for a, b in zip(conds["dirichlet"], wc["dirichlet"]):
+            np.testing.assert_array_equal(a.nodes, b.nodes)
+            assert (a.onoff, a.val, a.funct) == (b.onoff, b.val, b.funct)
+        assert len(conds["neumann"]) == len(wc["neumann"])
+        for a, b in zip(conds["neumann"], wc["neumann"]):
+            _same_faces(a.faces, b.faces)
+            assert (a.onoff, a.val, a.funct, a.kind) == \
+                (b.onoff, b.val, b.funct, b.kind)
+    xyz = np.random.default_rng(0).uniform(-1, 2, size=(5, 3))
+    for fid in got.raw.get("functions") or {}:
+        for t in (0.0, 0.02, 0.37):
+            np.testing.assert_array_equal(
+                got.functions.get(fid)(xyz, t),
+                np.asarray(want.functions.get(fid)(xyz, t)))
+
+
+@pytest.mark.parametrize("path", _structure_decks(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_unported_structure_deck_is_refused(path, monkeypatch):
+    def built(*args, **kwargs):
+        raise AssertionError("the field was built before the refusal")
+
+    monkeypatch.setattr(structure_driver, "build_field", built)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        driver.run(path, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [["--restart", "2"], ["--restart-from", "x"],
+                                  ["--profile", "x"], ["--debug-nans"]])
+def test_cli_refuses_unported_flags(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        main([LATTICE, "--device", "cpu", *flag])
+    assert exc.value.code != 0
+    assert f"{flag[0]} is not ported" in capsys.readouterr().err
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs a host "
+                    "without a CUDA device")
+def test_cli_without_a_card_does_not_fall_back_to_the_cpu(capsys):
+    with pytest.raises(SystemExit) as exc:
+        main([LATTICE])
+    assert exc.value.code != 0
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_malformed_deck_raises_value_error():
+    with open(LATTICE) as fh:
+        data = yaml.safe_load(fh)
+    data["structural_dynamic"]["numsteps"] = 4
+    with pytest.raises(ValueError, match="unknown key"):
+        deck_mod.load(data)
+
+
+def test_cli_imports_neither_jax_nor_the_reference():
+    code = ("import sys\n"
+            "from fourc_tpu_torch.app.main import main\n"
+            "assert main(['--parameters']) == 0\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'fourc_tpu'))\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "structural_dynamic:" in out.stdout

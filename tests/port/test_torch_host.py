@@ -172,7 +172,7 @@ def test_linear_elastic_stress_matches_reference():
 
 
 def test_make_material_rejects_unported():
-    with pytest.raises(KeyError):
+    with pytest.raises(NotImplementedError):
         make_material({"type": "mooneyrivlin", "c1": 1.0})
 
 
