@@ -46,7 +46,22 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
    (d) the flagship problem of phase 5 as a deck dict (n=72, float32, 6
        steps) through ``driver.run``: the same Newton and CG counts in every
        step as phase 5's warm-up and timed steps, B1-B3 launched and none of
-       B4-B7, its ms/step printed beside phase 5's.
+       B4-B7, its ms/step printed beside phase 5's;
+9. the element route (tet4, wedge6, ElastHyper: plain PyTorch, no kernel)
+   and the direct solve:
+   (a) the converted 4C decks solid_ele_hex8_standard_dynamic.yaml and
+       solid_ele_wedge6_standard_dynamic.yaml and decks/
+       solid_tet4_unstructured.yaml through ``app.main.main`` on the card
+       in float64: every anchor passes (12/12, 12/12, 6/6);
+   (b) the same three decks through ``driver.run`` on the card and on the
+       CPU: final d, v, a agree to STEP_TOL; the hex8 deck (ElastHyper on
+       the element route) launches B6 for its mass only, and none of B1-B5
+       or B7; the wedge6 and tet4 decks launch none of B1-B7;
+   (c) tet4 path: bench.py's problem with BENCH_CELL=tet4,
+       BENCH_MESH=permuted at n=56 (1,053,696 tet4 elements, 555,579
+       dofs; the jittered, permuted box split 6 tets per hex) the same way
+       as phases 5-7, none of B1-B7 launched, with the element route's
+       force and tangent timed at full size.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last three lines are a JSON object with per-kernel results (launches on
@@ -357,10 +372,10 @@ def permute(disc):
     return disc
 
 
-def make_mesh(n, mesh):
+def make_mesh(n, mesh, cell="hex8"):
     """The n^3 box of a path: flagship, jittered or permuted (jittered,
-    then renumbered)."""
-    disc = gridgen.box(n, n, n)
+    then renumbered), of hex8 cells or each hex split into 6 tet4."""
+    disc = gridgen.box(n, n, n, cell=cell)
     if mesh in ("jittered", "permuted"):
         jitter(disc, n)
     if mesh == "permuted":
@@ -568,12 +583,13 @@ def phase_kernels():
     return results
 
 
-def build_problem(n, device, dtype, mesh="flagship"):
+def build_problem(n, device, dtype, mesh="flagship", cell="hex8"):
     """bench.py's problem (f32 Newton settings for float32) on one of its
     meshes: ``flagship`` (the uniform box), ``jittered`` (its
     ``unstructured_1M`` variant) or ``permuted`` (``permuted_500k``, whose
-    ``gmg`` falls back to SA-AMG)."""
-    disc = make_mesh(n, mesh)
+    ``gmg`` falls back to SA-AMG), of hex8 or (BENCH_CELL=tet4) tet4
+    cells."""
+    disc = make_mesh(n, mesh, cell)
     ndof = disc.n_nodes * 3
     mat = materials.make_material({"type": "neohooke", "youngs": 1.0e4,
                                    "nue": 0.3, "density": 1.0})
@@ -602,13 +618,14 @@ def build_problem(n, device, dtype, mesh="flagship"):
 
 
 def make_step(f, name):
-    """ps.make_step; on the permuted box the ``gmg`` request must warn that
-    it falls back to SA-AMG, on the others nothing may warn."""
+    """ps.make_step; on general topology (the permuted boxes) the ``gmg``
+    request must warn that it falls back to SA-AMG, on the others nothing
+    may warn."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         step = ps.make_step(f, dt=0.02)
     msgs = [str(w.message) for w in caught]
-    if (name == "permuted") != any("SA-AMG" in m for m in msgs):
+    if (f.lattice is None) != any("SA-AMG" in m for m in msgs):
         raise RuntimeError(f"{name}: unexpected warnings {msgs}")
     return step
 
@@ -650,13 +667,17 @@ def _log_amg(name, M):
               f"{info['coarse_bytes'] / 2**30:.3f} GiB")
 
 
-def phase_main_path(name, n_steps=5):
-    """One path at full size; returns the launches of its run and what the
-    deck phase compares with: (Newton, CG) of every step, max|d|, ms/step."""
-    n = FULL_N[name]
+def phase_main_path(name, n_steps=5, mesh=None, cell="hex8", n=None,
+                    after=None):
+    """One path at full size (phases 5-7; the tet4 path of phase 9 (c) is
+    ``name`` "tet4" on the ``permuted`` mesh); returns the launches of its
+    run and what the deck phase compares with: (Newton, CG) of every step,
+    max|d|, ms/step.  ``after(f, state)`` runs after the launches are
+    read."""
+    n = n or FULL_N[name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    f = build_problem(n, "cuda", torch.float32, name)
+    f = build_problem(n, "cuda", torch.float32, mesh or name, cell)
     torch.cuda.synchronize()
     kind = ("general topology" if f.lattice is None else
             "general geometry" if f.x is not None else "uniform geometry")
@@ -708,6 +729,8 @@ def phase_main_path(name, n_steps=5):
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(name, f"launches {counts}")
     _check_launched(f"the {name} path", name, counts)
+    if after is not None:
+        after(f, state)
     return counts, {"steps": [(st["iters"], st["lin_iters"])
                               for st in all_stats],
                     "max_d": float(d.abs().max()), "ms": ms}
@@ -837,6 +860,83 @@ def phase_decks(flagship):
     log("deck", f"launches {counts}")
 
 
+ELEMENT_DECKS = {
+    "decks/ref_converted/solid_ele_hex8_standard_dynamic.yaml": 12,
+    "decks/ref_converted/solid_ele_wedge6_standard_dynamic.yaml": 12,
+    "decks/solid_tet4_unstructured.yaml": 6}
+
+
+def _time_element_route(f, state):
+    """Device ms per call (CUDA events, 10 calls) of the element route's
+    force, tangent and mass at the state's displacement, on every block
+    of the field, with the gathers and the assembly around them."""
+    u = state["d"]
+    v = torch.randn_like(u)
+    out = {}
+    for label, fn in (("force", lambda: f.internal_force(u)),
+                      ("tangent with the mass",
+                       lambda: f.tangent(u, v, 9930.0)),
+                      ("mass", lambda: f.mass_matvec(v))):
+        out[label] = _time(fn, reps=10)
+    blk = f.blocks[0]
+    ue, ve = f.dofmap.gather(u, blk.key), f.dofmap.gather(v, blk.key)
+    out["element tangent alone"] = _time(
+        lambda: blk.tangent(ue, ve, 9930.0), reps=10)
+    out["gather"] = _time(lambda: f.dofmap.gather(u, blk.key), reps=10)
+    te = blk.tangent(ue, ve, 9930.0)
+    out["assembly"] = _time(lambda: f.dofmap.scatter_add({blk.key: te}),
+                            reps=10)
+    return out
+
+
+def phase_elements():
+    """Phase 9: the element route and the direct solve."""
+    # (a) anchors through the CLI on the card, float64
+    for path, n_tests in ELEMENT_DECKS.items():
+        rc, out = _cli([path, "--device", "cuda"])
+        if rc != 0 or f"result tests: {n_tests}/{n_tests} passed" not in out:
+            raise RuntimeError(f"{path}: rc {rc}, RESULT DESCRIPTION not met "
+                               f"on the card")
+    # (b) GPU against CPU through driver.run, float64, and the launches
+    for path in ELEMENT_DECKS:
+        states = {}
+        for device in ("cuda", "cpu"):
+            reset_launches()
+            res = driver.run(path, device=device)
+            states[device] = res.fields["structure"].flat_state(
+                res.states["structure"])
+            if device == "cuda":
+                counts = launches()
+        hex8 = "hex8" in path
+        others = {k: c for k, c in counts.items()
+                  if not (hex8 and k == "solid_force")}
+        if any(others.values()) or hex8 != (counts["solid_force"] > 0):
+            raise RuntimeError(f"{path}: launches {counts}")
+        errs = []
+        for k in ("d", "v", "a"):
+            got, want = states["cuda"][k].cpu(), states["cpu"][k]
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+        log("elements", f"{path} float64, GPU vs CPU: d / v / a max rel "
+                        f"err {errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
+                        f"(tol {STEP_TOL:g}); launches "
+                        + (f"B6 mass-only {counts['solid_force']}, none of "
+                           f"B1-B5 or B7" if hex8 else "none of B1-B7"))
+        if not max(errs) <= STEP_TOL:
+            raise RuntimeError(f"{path}: GPU run disagrees with the CPU run")
+    # (c) bench.py's tet4 permuted box at n=56
+    def after(f, state):
+        blocks = [(b.key, b.cell.name, b.X.shape[1], b.model)
+                  for b in f.blocks]
+        log("tet4", f"blocks (key, cell, elements, kernel model): {blocks}")
+        times = _time_element_route(f, state)
+        log("tet4", "element route ms per call (device, CUDA events, "
+                    "float32): " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in times.items()))
+
+    phase_main_path("tet4", mesh="permuted", cell="tet4",
+                    n=FULL_N["permuted"], after=after)
+
+
 def main():
     smi_line = phase_environment()
     phase_build()
@@ -845,6 +945,7 @@ def main():
     runs = {name: phase_main_path(name) for name in FULL_N}
     counts = {name: run[0] for name, run in runs.items()}
     phase_decks(runs["flagship"][1])
+    phase_elements()
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

@@ -1,9 +1,10 @@
-"""Cell tables for the lattice slice: hex8 volumes and quad4 faces.
+"""Cell tables: hex8, tet4 and wedge6 volumes, quad4 faces.
 
-Counterpart of fourc_tpu/core/cells.py, restricted to the two cell types the
-flagship problem uses.  Tables are built once on the host in float64 with the
-same Gauss rules and the same Richardson-extrapolated derivative formula as
-the reference, so both packages see bit-identical N, dN and weights.
+Counterpart of fourc_tpu/core/cells.py, restricted to the cell types the
+ported problems use.  Tables are built once on the host in float64 with the
+same shape functions, the same Gauss rules and the same
+Richardson-extrapolated derivative formula as the reference, so both
+packages see bit-identical N, dN and weights.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ _QUAD_CORNERS = np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]],
 
 _HEX_SURFACES = ((0, 3, 2, 1), (0, 1, 5, 4), (1, 2, 6, 5), (2, 3, 7, 6),
                  (3, 0, 4, 7), (4, 5, 6, 7))
+_TET_SURFACES = ((0, 2, 1), (0, 1, 3), (1, 2, 3), (0, 3, 2))
+_WEDGE_SURFACES = ((0, 1, 4, 3), (1, 2, 5, 4), (2, 0, 3, 5), (0, 2, 1),
+                   (3, 4, 5))
 _QUAD_EDGES = ((0, 1), (1, 2), (2, 3), (3, 0))
 
 
@@ -36,6 +40,17 @@ def _n_hex8(xi):
     return 0.125 * (1 + c[:, 0] * r) * (1 + c[:, 1] * s) * (1 + c[:, 2] * t)
 
 
+def _n_tet4(xi):
+    r, s, t = xi
+    return np.array([1 - r - s - t, r, s, t])
+
+
+def _n_wedge6(xi):
+    r, s, t = xi
+    tri = np.array([1 - r - s, r, s])
+    return np.concatenate([tri * 0.5 * (1 - t), tri * 0.5 * (1 + t)])
+
+
 def _tensor_rule(n, dim):
     """Tensor Gauss-Legendre rule, first axis fastest (reference order)."""
     p, w = np.polynomial.legendre.leggauss(n)
@@ -45,6 +60,27 @@ def _tensor_rule(n, dim):
         return P, W
     P = np.array([[a, b, c] for c in p for b in p for a in p])
     W = np.array([wa * wb * wc for wc in w for wb in w for wa in w])
+    return P, W
+
+
+_TRI3_RULE = (np.array([[1 / 6, 1 / 6], [2 / 3, 1 / 6], [1 / 6, 2 / 3]]),
+              np.array([1 / 6, 1 / 6, 1 / 6]))
+_A_TET4 = 0.58541019662496845446  # (5+3*sqrt(5))/20
+_B_TET4 = 0.13819660112501051518  # (5-sqrt(5))/20
+_TET4_RULE = (np.array([[_B_TET4, _B_TET4, _B_TET4],
+                        [_A_TET4, _B_TET4, _B_TET4],
+                        [_B_TET4, _A_TET4, _B_TET4],
+                        [_B_TET4, _B_TET4, _A_TET4]]),
+              np.array([1 / 24] * 4))
+
+
+def _wedge_rule(nline):
+    """The 3-point triangle rule times an nline-point Gauss-Legendre rule,
+    the triangle's points fastest (reference order)."""
+    tp, tw = _TRI3_RULE
+    lp, lw = np.polynomial.legendre.leggauss(nline)
+    P = np.array([[a[0], a[1], b] for b in lp for a in tp])
+    W = np.array([wa * wb for wb in lw for wa in tw])
     return P, W
 
 
@@ -97,7 +133,17 @@ def get_cell(name: str) -> CellType:
     if name == "hex8":
         return _make("hex8", 3, _n_hex8, _tensor_rule(2, 3),
                      surfaces=_HEX_SURFACES)
+    if name == "tet4":
+        return _make("tet4", 3, _n_tet4, _TET4_RULE, surfaces=_TET_SURFACES)
+    if name == "wedge6":
+        return _make("wedge6", 3, _n_wedge6, _wedge_rule(2),
+                     surfaces=_WEDGE_SURFACES)
     if name == "quad4":
         return _make("quad4", 2, _n_quad4, _tensor_rule(2, 2),
                      edges=_QUAD_EDGES)
-    raise KeyError(f"cell type {name!r} is not ported (hex8, quad4 are)")
+    raise KeyError(f"cell type {name!r} is not ported ({', '.join(CELLS)} "
+                   f"are)")
+
+
+CELLS = ("hex8", "tet4", "wedge6", "quad4")  # the ported cell types
+SOLID_CELLS = ("hex8", "tet4", "wedge6")  # the ported 3D volume cells

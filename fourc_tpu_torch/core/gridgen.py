@@ -1,9 +1,12 @@
-"""Structured hex8 box generator.
+"""Structured box generator: hex8, tet4 and wedge6 cells.
 
-Counterpart of fourc_tpu/core/gridgen.py:box for hex8 cells, with the
+Counterpart of fourc_tpu/core/gridgen.py:box for linear 3D cells, with the
 connectivity and the face quads built by vectorised numpy instead of Python
 loops, so the n=72 flagship box (1,167,051 dofs) builds without a
-per-element Python loop.
+per-element Python loop.  A tet4 box splits every hex8 of the lattice into
+6 tets and a wedge6 box into 2 wedges, with no new nodes, in the
+reference's order: all hexes' first piece, then all hexes' second, and so
+on.  The face sets are quad4 lattice faces for every cell type.
 """
 
 from __future__ import annotations
@@ -13,13 +16,23 @@ import numpy as np
 from fourc_tpu_torch.core.mesh import (Discretization, ElementBlock,
                                        FaceBlock, lattice_conn)
 
+# local hex8 nodes of each piece of a split hex (reference order)
+_HEX_PIECES = {
+    "hex8": ((0, 1, 2, 3, 4, 5, 6, 7),),
+    "tet4": ((0, 1, 2, 6), (0, 2, 3, 6), (0, 3, 7, 6), (0, 7, 4, 6),
+             (0, 4, 5, 6), (0, 5, 1, 6)),
+    "wedge6": ((0, 1, 2, 4, 5, 6), (0, 2, 3, 4, 6, 7)),
+}
+
 
 def box(nx: int, ny: int, nz: int, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 1.0),
         cell: str = "hex8", name: str = "structure",
         mat_id: int = 1) -> Discretization:
-    """nx*ny*nz-element rectangular cuboid of hex8 cells."""
-    if cell != "hex8":
-        raise NotImplementedError(f"box cell {cell!r} is not ported (hex8 is)")
+    """Rectangular cuboid of nx*ny*nz hexes, each one hex8 cell or split
+    into 6 tet4 or 2 wedge6 cells."""
+    if cell not in _HEX_PIECES:
+        raise NotImplementedError(f"box cell {cell!r} is not ported "
+                                  f"({', '.join(_HEX_PIECES)} are)")
     # lo + (hi - lo) * i / n, the reference's native formula, so that the
     # coordinates are the reference's to the last bit
     xs, ys, zs = (lo[a] + (hi[a] - lo[a]) * np.arange(n + 1.0) / n
@@ -27,8 +40,10 @@ def box(nx: int, ny: int, nz: int, lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 1.0),
     X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
     coords = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
     disc = Discretization(name=name, coords=coords)
-    disc.blocks["hex8"] = ElementBlock("hex8", lattice_conn(nx, ny, nz),
-                                       mat_id)
+    hexes = lattice_conn(nx, ny, nz)
+    disc.blocks[cell] = ElementBlock(
+        cell, np.concatenate([hexes[:, list(p)] for p in _HEX_PIECES[cell]]),
+        mat_id)
     disc.structured_shape = (nx, ny, nz, 1)
     _add_box_sets(disc, lo, hi)
     return disc

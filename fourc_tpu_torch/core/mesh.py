@@ -98,8 +98,8 @@ class Discretization:
         else:
             self.blocks[key] = ElementBlock(cell, conn, mat_id)
 
-    def dofmap(self, ndpn: int) -> "DofMap":
-        return DofMap.build(self, ndpn)
+    def dofmap(self, ndpn: int, lattice: bool = True) -> "DofMap":
+        return DofMap.build(self, ndpn, lattice)
 
 
 def lattice_conn(nx, ny, nz):
@@ -235,10 +235,13 @@ class DofMap:
     blocks: dict[str, BlockAssembly]
 
     @staticmethod
-    def build(disc: Discretization, ndpn: int) -> "DofMap":
+    def build(disc: Discretization, ndpn: int,
+              lattice: bool = True) -> "DofMap":
+        """With ``lattice`` False every block takes the general-topology
+        layout, lattice blocks too."""
         out = {}
         for key, blk in disc.blocks.items():
-            st = _detect_structured(disc, blk)
+            st = _detect_structured(disc, blk) if lattice else None
             inc_clip = inc_w = None
             if st is None:
                 inc_clip, inc_w = _incidence(blk.conn, disc.n_nodes)

@@ -1,10 +1,10 @@
-"""Preconditioned conjugate gradients.
+"""Preconditioned conjugate gradients and the dense direct solve.
 
-Counterpart of fourc_tpu/linalg/solvers.py:cg.  Operators are callables
-v -> A v on tensors of any shape (flat dof vectors or padded lattices).  The
-loop runs on the host and reads ||r|| once per iteration to test
-convergence: one device sync per iteration, which a device-side test or a
-CUDA graph would remove.
+Counterpart of fourc_tpu/linalg/solvers.py:cg and :direct.  Operators are
+callables v -> A v on tensors of any shape (flat dof vectors or padded
+lattices).  The CG loop runs on the host and reads ||r|| once per
+iteration to test convergence: one device sync per iteration, which a
+device-side test or a CUDA graph would remove.
 """
 
 from __future__ import annotations
@@ -55,3 +55,18 @@ def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
         k += 1
         rn = float(torch.linalg.vector_norm(r))
     return KrylovResult(x=x, iters=k, resnorm=rn, converged=rn <= stop)
+
+
+def direct(A, b, **_):
+    """Dense direct solve (LU with partial pivoting), for small systems: the
+    operator is densified by probing with the identity's columns (n
+    operator applications), then solved with ``torch.linalg.solve``.
+    Returns iters = 1, as the reference does."""
+    n = b.numel()
+    eye = torch.eye(n, dtype=b.dtype, device=b.device)
+    Ad = torch.stack([A(eye[k].reshape(b.shape)).reshape(-1)
+                      for k in range(n)], dim=1)
+    x = torch.linalg.solve(Ad, b.reshape(-1))
+    rn = float(torch.linalg.vector_norm(b.reshape(-1) - Ad @ x))
+    return KrylovResult(x=x.reshape(b.shape), iters=1, resnorm=rn,
+                        converged=True)

@@ -1,5 +1,6 @@
-"""Material library: the laws the lattice slice uses."""
+"""Material library: the laws the ported problems use."""
 
-from fourc_tpu_torch.materials import elastic, small_strain  # noqa: F401
+from fourc_tpu_torch.materials import (elastic, elasthyper,  # noqa: F401
+                                       small_strain)
 from fourc_tpu_torch.materials.base import (MATERIAL_REGISTRY,  # noqa: F401
                                             Material, make_material)

@@ -35,10 +35,14 @@ def make_material(spec: dict):
         raise NotImplementedError(
             f"material type {typ!r} is not ported; ported: "
             f"{sorted(MATERIAL_REGISTRY)}") from None
-    return cls(**spec)
+    return cls.from_deck(spec)
 
 
 class Material:
     """Base for all materials; ``history_shape`` () means no history."""
 
     history_shape: tuple = ()
+
+    @classmethod
+    def from_deck(cls, params: dict):
+        return cls(**params)

@@ -1,5 +1,5 @@
-"""Solid element operators: setup-time matrices and loads, and the plain
-PyTorch twins of the element-batch kernels.
+"""Solid element operators: setup-time matrices and loads, the plain
+PyTorch twins of the element-batch kernels, and the element route.
 
 Counterpart of the subset of fourc_tpu/ops/solid.py that the ported slices
 need.  At setup, in float64: the lumped and consistent mass, the
@@ -11,13 +11,24 @@ element stiffness (whole, or only its diagonal and absolute row sums) as
 torch, chunk by chunk on the caller's device (the (E, 24, 24) matrices of a
 1M-dof mesh never exist at once on the device).
 
-On the hot path of a mesh of general topology: ``hex8_force_ref`` and
-``hex8_tangent_ref``, the twins of the CUDA kernels of
-ops/solid_kernels.py (the reference's ``_internal_force_einsum`` for hex8,
-nonlinear kinematics, Neo-Hooke or SVK, and its hand-propagated
-derivative), on element batches in the kernels' layout: (24, E) arrays, row
-a*3+i = component i of local node a, one column per element.  They run on
-CPU tensors only; a CUDA tensor goes to the kernels.
+On the hot path of a mesh of general topology, on element batches in the
+dof map's layout: (nen*3, E) arrays, row a*3+i = component i of local node
+a, one column per element.
+
+- ``hex8_force_ref`` and ``hex8_tangent_ref``: the twins of the CUDA
+  kernels of ops/solid_kernels.py (the reference's
+  ``_internal_force_einsum`` for hex8, nonlinear kinematics, Neo-Hooke or
+  SVK, and its hand-propagated derivative).  They run on CPU tensors only;
+  a CUDA tensor goes to the kernels.
+- ``element_force`` and ``element_tangent``: the element route, the
+  reference's ``_internal_force_einsum`` for 3D nonlinear kinematics and
+  its ``jax.jvp``, for any ported cell and any material with a
+  ``pk2_from_E`` (the blocks no kernel carries: tet4, wedge6, ElastHyper).
+  The reference computes these blocks in XLA, not in a Pallas kernel, so
+  this plain PyTorch route is their port on every device.  The geometry
+  (``element_geometry``) is computed once per mesh; the tangent
+  propagates the kinematics by hand and the stress by forward-mode AD
+  (``torch.func.jvp`` of ``pk2_from_E``).
 """
 
 from __future__ import annotations
@@ -75,10 +86,10 @@ ELEMENT_CHUNK = 16384  # elements per chunk of the per-element torch setup
 
 
 @functools.cache
-def hex8_tables(device, dtype):
-    """The hex8 reference gradients dN (8, 8, 3), Gauss weights w (8,) and
-    shape functions N (8, 8) at the Gauss points, as tensors."""
-    cell = get_cell("hex8")
+def cell_tables(name, device, dtype):
+    """A cell's reference gradients dN (g, nen, 3), Gauss weights w (g,)
+    and shape functions N (g, nen) at the Gauss points, as tensors."""
+    cell = get_cell(name)
     return tuple(torch.as_tensor(np.asarray(t), dtype=dtype,
                                  device=device).contiguous()
                  for t in (cell.dN, cell.gauss_weights, cell.N))
@@ -92,7 +103,8 @@ def hex8_force_ref(X24, u24, lam, mu, model="neohooke", mcoef=0.0,
     E = X24.shape[1]
     fe = _lat.force_gen_elements(
         X24.reshape(8, 3, E), u24.reshape(8, 3, E),
-        *hex8_tables(X24.device, X24.dtype), lam, mu, model, mcoef, stiff)
+        *cell_tables("hex8", X24.device, X24.dtype), lam, mu, model, mcoef,
+        stiff)
     return fe.reshape(24, E)
 
 
@@ -102,7 +114,7 @@ def hex8_tangent_ref(X24, u24, v24, lam, mu, model="neohooke", mcoef=0.0):
     E = X24.shape[1]
     fe = _lat.jvp_gen_elements(
         X24.reshape(8, 3, E), u24.reshape(8, 3, E), v24.reshape(8, 3, E),
-        *hex8_tables(X24.device, X24.dtype), lam, mu, model, mcoef)
+        *cell_tables("hex8", X24.device, X24.dtype), lam, mu, model, mcoef)
     return fe.reshape(24, E)
 
 
@@ -162,3 +174,94 @@ def element_stiffness_rows(Xe, cell: CellType, lam: float, mu: float,
         diag[sl] = torch.diagonal(K, dim1=1, dim2=2)
         rowabs[sl] = K.abs().sum(dim=2)
     return diag, rowabs
+
+
+# ---------------------------------------------------------------------------
+# the element route: any cell, any material with pk2_from_E
+# ---------------------------------------------------------------------------
+
+
+def element_geometry(X, cell: CellType, chunk=4 * ELEMENT_CHUNK):
+    """Element batch coordinates X (nen*3, E) -> G (nen, 3, g, E), the
+    physical gradients of the shape functions at the Gauss points, and
+    wdet (g, E), det J times the Gauss weight; in X's dtype and device,
+    chunk by chunk of elements."""
+    dN, w, _ = cell_tables(cell.name, X.device, X.dtype)
+    nen, E = cell.nen, X.shape[1]
+    Xt = X.reshape(nen, 3, E)
+    G = X.new_empty((nen, 3, cell.ngp, E))
+    wdet = X.new_empty((cell.ngp, E))
+    for c0 in range(0, E, chunk):
+        sl = slice(c0, min(c0 + chunk, E))
+        J = torch.einsum("aiE,gaj->ijgE", Xt[:, :, sl], dN)  # (3, 3, g, e)
+        detJ = gm.det3l(J)
+        G[:, :, :, sl] = torch.einsum("gaj,jigE->aigE", dN,
+                                      gm.inv3l(J, detJ))
+        wdet[:, sl] = detJ * w[:, None]
+    return G, wdet
+
+
+def _grad(ut, G):
+    """Gradient of a nodal field at the Gauss points: ut (nen, 3, E),
+    G (nen, 3, g, E) -> H (3, 3, g, E), H[c, d] = sum_a u[a, c] G[a, d]."""
+    H = ut[0, :, None, None] * G[0][None]
+    for a in range(1, G.shape[0]):
+        H = H + ut[a, :, None, None] * G[a][None]
+    return H
+
+
+def _integrate(Q, G):
+    """f[a, i] = sum_{j, g} Q[i, j, g] G[a, j, g]: Q (3, 3, g, E) (the
+    weighted first Piola-Kirchhoff stress), G (nen, 3, g, E) ->
+    (nen, 3, E)."""
+    return torch.stack([(Q * G[a][None]).sum(dim=(1, 2))
+                        for a in range(G.shape[0])])
+
+
+def _mass(wdet, N, vt):
+    """Consistent mass matvec of unit density: sum_g wdet N_a N_b v_b,
+    vt (nen, 3, E) -> (nen, 3, E)."""
+    vg = torch.einsum("ga,aiE->igE", N, vt)  # (3, g, E)
+    return torch.einsum("gE,ga,igE->aiE", wdet, N, vg)
+
+
+def _green_lagrange(H):
+    """E = (H + H^T + H^T H) / 2, formed without C - I."""
+    return 0.5 * (H + H.transpose(0, 1) + gm.tmatmul3l(H, H))
+
+
+def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True):
+    """Total-Lagrangian internal force f = sum_g wdet_g P(F_g) G_g of an
+    element batch (when ``stiff``) plus ``mcoef * sum_g wdet_g N N^T u``
+    (the consistent mass, when mcoef != 0; N (g, nen) is then required):
+    u (nen*3, E) -> (nen*3, E)."""
+    nen, _, _, E = G.shape
+    ut = u.reshape(nen, 3, E)
+    out = torch.zeros_like(ut)
+    if stiff:
+        H = _grad(ut, G)
+        S = material.pk2_from_E(_green_lagrange(H))
+        P = gm.matmul3l(H + gm.eye3l(H), S)
+        out = out + _integrate(P * wdet, G)
+    if mcoef:
+        out = out + mcoef * _mass(wdet, N, ut)
+    return out.reshape(nen * 3, E)
+
+
+def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None):
+    """Directional derivative of ``element_force`` along v plus
+    ``mcoef * sum_g wdet_g N N^T v``: with dH = grad v and F = I + H,
+    dE = (dH^T F + F^T dH) / 2, dS = the stress's derivative along dE
+    (forward-mode AD of ``pk2_from_E``) and dP = dH S + F dS."""
+    nen, _, _, E = G.shape
+    ut, vt = u.reshape(nen, 3, E), v.reshape(nen, 3, E)
+    H, dH = _grad(ut, G), _grad(vt, G)
+    F = H + gm.eye3l(H)
+    FtdH = gm.tmatmul3l(F, dH)
+    S, dS = torch.func.jvp(material.pk2_from_E, (_green_lagrange(H),),
+                           (0.5 * (FtdH + FtdH.transpose(0, 1)),))
+    dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
+    out = _integrate(dP * wdet, G)
+    if mcoef:
+        out = out + mcoef * _mass(wdet, N, vt)
+    return out.reshape(nen * 3, E)

@@ -75,7 +75,8 @@ def hex8_force(X24, u24, lam, mu, model="neohooke", mcoef=0.0, stiff=True):
     check(u24, X24, X24.shape, "u24")
     out = torch.empty_like(X24)
     run(getattr(_lib(), f"fourc_solid_force_{SUFFIX[X24.dtype]}"),
-        ptr(X24), ptr(u24), *map(ptr, _ops.hex8_tables(X24.device, X24.dtype)),
+        ptr(X24), ptr(u24),
+        *map(ptr, _ops.cell_tables("hex8", X24.device, X24.dtype)),
         float(lam), float(mu), MODELS[model], float(mcoef), int(bool(stiff)),
         E, ptr(out))
     launches["force"] += 1
@@ -92,7 +93,7 @@ def hex8_tangent(X24, u24, v24, lam, mu, model="neohooke", mcoef=0.0):
     out = torch.empty_like(X24)
     run(getattr(_lib(), f"fourc_solid_tangent_{SUFFIX[X24.dtype]}"),
         ptr(X24), ptr(u24), ptr(v24),
-        *map(ptr, _ops.hex8_tables(X24.device, X24.dtype)), float(lam),
-        float(mu), MODELS[model], float(mcoef), E, ptr(out))
+        *map(ptr, _ops.cell_tables("hex8", X24.device, X24.dtype)),
+        float(lam), float(mu), MODELS[model], float(mcoef), E, ptr(out))
     launches["tangent"] += 1
     return out

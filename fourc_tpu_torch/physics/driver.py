@@ -122,16 +122,17 @@ def time_loop(
 
 
 def newton_params_from(dyn: dict, solver: dict) -> NewtonParams:
-    """The deck's Newton and linear-solver settings.  The solver method
-    (only CG is ported), GMRES's restart length and the debug table of io
-    verbosity 'debug' have no field here: the structure driver refuses
-    decks that set them."""
+    """The deck's Newton and linear-solver settings.  GMRES's restart
+    length and the debug table of io verbosity 'debug' have no field here:
+    the structure driver refuses decks that set them, and solver methods
+    other than cg and direct."""
     return NewtonParams(
         max_iter=dyn["maxiter"],
         tol_res=dyn["tolres"],
         tol_res_rel=dyn.get("tolres_rel", 0.0),
         tol_disp=dyn["toldisp"],
         combine=dyn["normcombi"],
+        lin_method=solver["method"],
         lin_maxiter=solver["maxiter"],
         lin_rtol=solver["rtol"],
         lin_adaptive=solver["adaptive"],

@@ -28,6 +28,7 @@ class NewtonParams:
     combine: str = "and"  # "and" | "or" of the two tests
     stag_tol: float = 0.0  # stop when rnorm > stag_tol * previous; 0 = off
     stag_min_drop: float = 1e-3
+    lin_method: str = "cg"  # "cg" | "direct"
     lin_maxiter: int = 500
     lin_rtol: float = 1e-4  # floor of the adaptive forcing term
     lin_adaptive: bool = True
@@ -68,9 +69,10 @@ def newton_solve(residual_fn, u0, free_mask, precond, params: NewtonParams,
     precond:     r -> z, constrained entries passed through
     matvec_fn:   (u, v) -> J(u) v, the tangent operator
 
-    The linear solver is preconditioned CG (GMRES and BiCGStab are not
-    ported).  Returns (u, stats) with iters, resnorm, dispnorm, lin_iters,
-    converged.
+    The linear solver is preconditioned CG or, with ``lin_method``
+    "direct", the dense direct solve (precond unused; GMRES and BiCGStab
+    are not ported).  Returns (u, stats) with iters, resnorm, dispnorm,
+    lin_iters, converged.
     """
     def masked_res(u):
         return torch.where(free_mask, residual_fn(u), 0.0)
@@ -98,8 +100,12 @@ def newton_solve(residual_fn, u0, free_mask, precond, params: NewtonParams,
                           params.lin_rtol), 1e-1)
         else:
             eta = params.lin_rtol
-        res = solvers.cg(make_op(u, sigma), -r, M=precond, tol=eta,
-                         atol=0.1 * params.tol_res, maxiter=params.lin_maxiter)
+        if params.lin_method == "direct":
+            res = solvers.direct(make_op(u, sigma), -r)
+        else:
+            res = solvers.cg(make_op(u, sigma), -r, M=precond, tol=eta,
+                             atol=0.1 * params.tol_res,
+                             maxiter=params.lin_maxiter)
         du = torch.where(free_mask, res.x, 0.0)
         u_new = u + du
         if params.line_search:

@@ -1,21 +1,28 @@
-"""Structural field of one hex8 block: forces, mass, gen-alpha step.
+"""Structural field: forces, mass, gen-alpha step.
 
 Counterpart of the subset of fourc_tpu/physics/solid.py that the ported
-problems run: one hex8 block, a Neo-Hooke or SVK law, consistent mass,
-Dirichlet and surface-traction conditions, gen-alpha in time with
-Newton-Krylov (CG + multigrid).  Three kinds of mesh, found from the mesh
-itself:
+problems run: hex8, tet4 and wedge6 blocks of any law with a PK2 stress
+(Neo-Hooke, SVK, ElastHyper), nonlinear kinematics, consistent mass,
+Dirichlet and surface-traction conditions, gen-alpha in time with Newton
+and CG + multigrid or a direct solve.  Three kinds of mesh, found from the
+mesh itself:
 
 - a uniform lattice: the operators are collapsed stencils (kernels B1-B3);
 - general geometry on lattice topology (arbitrary node positions, e.g. a
   jittered box): the field keeps its node coordinates as a lattice and the
   general-geometry kernels (B4, B5) compute every element's Jacobians.
   Both work on the padded lattice layout of ops/lattice.py, with the
-  geometric multigrid of linalg/gmg.py;
-- general topology (no lattice in the connectivity, e.g. any mesh read
-  from a file): flat dof vectors, gathered into element batches, the
-  element-batch kernels (B6, B7) and the dof map's deterministic assembly
-  (core/mesh.py), with the smoothed-aggregation AMG of linalg/amg.py.
+  geometric multigrid of linalg/gmg.py, and both need one hex8 block whose
+  law has a kernel (Neo-Hooke or SVK);
+- general topology (every other mesh: no lattice in the connectivity, e.g.
+  any mesh read from a file, several blocks, other cells or laws): flat
+  dof vectors, gathered block by block into element batches and assembled
+  by the dof map's deterministic incidence sums (core/mesh.py), with the
+  smoothed-aggregation AMG of linalg/amg.py.  A hex8 block of Neo-Hooke or
+  SVK runs the element-batch kernels (B6, B7); every other block the
+  element route of ops/solid.py (plain PyTorch: the reference runs these
+  blocks in XLA, not in a Pallas kernel), and a hex8 block of any law its
+  mass with B6.
 
 The kernels run on a CUDA device, their twins on the CPU.  State dicts from
 ``init_state``/``compute_initial_state`` hold flat dof vectors, as in the
@@ -33,7 +40,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from fourc_tpu_torch.core.cells import get_cell
+from fourc_tpu_torch.core.cells import SOLID_CELLS, get_cell
 from fourc_tpu_torch.core.conditions import DirichletHandler
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.functions import FunctionManager
@@ -76,8 +83,9 @@ class GenAlphaParams:
 class SolidParams:
     """Reference defaults.  The ported slices run kinem "nonlinear", tech
     "none", dyntype "genalpha", precond "gmg" (or "amg" on general
-    topology), consistent mass and no Rayleigh damping; SolidField and
-    make_step refuse anything else."""
+    topology) or the direct solver (``newton.lin_method``), consistent mass
+    and no Rayleigh damping; SolidField and make_step refuse anything
+    else."""
 
     kinem: str = "nonlinear"
     tech: str = "none"
@@ -92,8 +100,81 @@ class SolidParams:
     predictor: str = "constdis"
 
 
+@dataclass
+class FieldBlock:
+    """One element block of a field of general topology: its elements'
+    coordinates X (nen*3, E) in the field's dtype, its law and, for a hex8
+    block whose law has a kernel model, the kernels B6/B7; any other block
+    takes the element route with its geometry G, wdet computed once
+    (ops/solid.py).  A hex8 block of any law computes its mass with B6."""
+
+    key: str
+    cell: object  # CellType
+    material: object
+    density: float
+    X: torch.Tensor
+    model: str | None = None  # B6/B7's model, None on the element route
+    lam: float = 0.0
+    mu: float = 0.0
+    G: torch.Tensor | None = None
+    wdet: torch.Tensor | None = None
+    N: torch.Tensor | None = None
+
+    def force(self, ue):
+        if self.model is not None:
+            return sk.hex8_force(self.X, ue, self.lam, self.mu, self.model)
+        return ops.element_force(self.G, self.wdet, ue, self.material)
+
+    def tangent(self, ue, ve, mcoef):
+        """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass)."""
+        c = mcoef * self.density
+        if self.model is not None:
+            return sk.hex8_tangent(self.X, ue, ve, self.lam, self.mu,
+                                   self.model, c)
+        return ops.element_tangent(self.G, self.wdet, ue, ve, self.material,
+                                   c, self.N)
+
+    def mass(self, ve):
+        if self.cell.name == "hex8":  # B6 in its mass-only mode
+            return sk.hex8_force(self.X, ve, 0.0, 0.0, "svk",
+                                 mcoef=self.density, stiff=False)
+        return ops.element_force(self.G, self.wdet, ve, None,
+                                 mcoef=self.density, N=self.N, stiff=False)
+
+
+def unsupported_blocks(disc: Discretization, block_mat: dict) -> list:
+    """What the solid field cannot take of a mesh and of its blocks' laws
+    (``block_mat``: block key -> material), one phrase each."""
+    out = []
+    if disc.dim != 3:
+        out.append(f"a {disc.dim}D mesh")
+    for key, blk in disc.blocks.items():
+        if blk.cell not in SOLID_CELLS:
+            out.append(f"element block {key!r} of cell {blk.cell!r} "
+                       f"({', '.join(SOLID_CELLS)} are ported)")
+        elif blk.conn.shape[1] != get_cell(blk.cell).nen:
+            out.append(f"element block {key!r}: {blk.conn.shape[1]} nodes "
+                       f"per {blk.cell} element")
+        mat = block_mat.get(key)
+        if mat is not None and not hasattr(mat, "pk2_from_E"):
+            out.append(f"element block {key!r}: material "
+                       f"{type(mat).__name__} (no PK2 stress)")
+    return out
+
+
+def takes_lattice_path(disc: Discretization, block_mat: dict) -> bool:
+    """A mesh of one hex8 block whose law has a kernel model keeps the
+    lattice paths when its connectivity is a lattice; every other mesh has
+    general topology."""
+    if len(disc.blocks) != 1:
+        return False
+    key, blk = next(iter(disc.blocks.items()))
+    return (blk.cell == "hex8"
+            and _lat.material_model(block_mat[key]) is not None)
+
+
 class SolidField:
-    """Discretization + material + conditions -> operators in the field's
+    """Discretization + materials + conditions -> operators in the field's
     layout (padded lattice, or flat dof vectors on general topology), on
     the CUDA card unless ``device="cpu"`` is asked for."""
 
@@ -107,11 +188,6 @@ class SolidField:
         self.dtype = dtype
         self.functions = functions or FunctionManager()
         self.ndpn = disc.dim
-        self.dofmap = disc.dofmap(self.ndpn)
-        self.ndof = self.dofmap.ndof
-        self.dbc = DirichletHandler(list(dirichlet), disc.coords, self.ndpn,
-                                    self.functions)
-        self.neumann = list(neumann)
         self.block_mat = {}
         for key, blk in disc.blocks.items():
             mid = int(blk.mat_id[0])
@@ -119,35 +195,26 @@ class SolidField:
                 raise ValueError(f"block {key} mixes materials")
             self.block_mat[key] = materials[mid]
         self._check_supported()
-        self.key = key = next(iter(self.block_mat))
-        mat = self.block_mat[key]
-        self.cell = get_cell("hex8")
-        self.model = _lat.material_model(mat)
-        if self.model is None:
-            raise NotImplementedError(f"no lattice kernel for {mat!r}")
-        self.lam, self.mu = (float(x) for x in lame(mat.youngs, mat.nue))
-        self.density = float(mat.density or 0.0)
-        self.N = self._t(self.cell.N)
+        lattice_path = takes_lattice_path(disc, self.block_mat)
+        self.dofmap = disc.dofmap(self.ndpn, lattice=lattice_path)
+        self.ndof = self.dofmap.ndof
+        self.dbc = DirichletHandler(list(dirichlet), disc.coords, self.ndpn,
+                                    self.functions)
+        self.neumann = list(neumann)
         # uniform lattice: collapsed stencils; else general geometry on the
         # lattice topology of the dof map: the coordinate lattice x; else
-        # general topology: element batches X24 through the dof map
-        self.lattice = _lat.detect_lattice(disc)
-        self.x = self.X24 = None
+        # general topology: element batches of every block through the dof
+        # map
+        self.lattice = self.x = None
+        self.blocks = []
+        if lattice_path:
+            self.lattice = _lat.detect_lattice(disc)
+            if self.lattice is None:
+                self.lattice = _lat.general_lattice(self.dofmap)
         if self.lattice is not None:
-            G, wdet = _lat.uniform_geometry(self.cell, self.lattice)
-            self.G, self.wdet = self._t(G), self._t(wdet)
-            self.Xe1 = disc.coords[disc.blocks[key].conn[:1]]  # (1, 8, 3)
-            self.mass_stencil = self._t(self._mass_stencil())
+            self._init_lattice()
         else:
-            self.lattice = _lat.general_lattice(self.dofmap)
-            if self.lattice is not None:
-                self.x = _lat.coord_lattice(disc.coords, self.lattice, dtype,
-                                            self.device)
-                self.dN = self._t(self.cell.dN)
-                self.w = self._t(self.cell.gauss_weights)
-            else:
-                Xe = disc.coords[disc.blocks[key].conn]  # (E, 8, 3)
-                self.X24 = self._t(Xe.reshape(-1, 24).T)
+            self.blocks = [self._field_block(key) for key in self.block_mat]
         free = torch.as_tensor(self.dbc.free_mask, dtype=torch.float64)
         self.free = self.to_lattice(free.to(self.device)) > 0
         self._amg_cache = {}
@@ -160,17 +227,64 @@ class SolidField:
                 self._neumann_data.append((nb, fc, fb.conn,
                                            disc.coords[fb.conn]))
 
+    def _init_lattice(self):
+        """One hex8 block of a law with a kernel, on a lattice."""
+        self.key = key = next(iter(self.block_mat))
+        mat = self.block_mat[key]
+        self.cell = get_cell("hex8")
+        self.model = _lat.material_model(mat)
+        self.lam, self.mu = (float(x) for x in lame(mat.youngs, mat.nue))
+        self.density = float(mat.density or 0.0)
+        self.N = self._t(self.cell.N)
+        if self.lattice.h is not None:  # uniform geometry
+            G, wdet = _lat.uniform_geometry(self.cell, self.lattice)
+            self.G, self.wdet = self._t(G), self._t(wdet)
+            self.Xe1 = self.disc.coords[self.disc.blocks[key].conn[:1]]
+            self.mass_stencil = self._t(self._mass_stencil())
+        else:
+            self.x = _lat.coord_lattice(self.disc.coords, self.lattice,
+                                        self.dtype, self.device)
+            self.dN = self._t(self.cell.dN)
+            self.w = self._t(self.cell.gauss_weights)
+
+    def _field_block(self, key) -> FieldBlock:
+        """General topology: a block's element batch, its kernel model or
+        its element-route geometry (computed in float64, kept in the
+        field's dtype)."""
+        mat = self.block_mat[key]
+        cell = get_cell(self.disc.blocks[key].cell)
+        X = self._element_coords(key)  # float64 (E, nen, 3)
+        X = X.reshape(X.shape[0], -1).T.contiguous()  # (nen*3, E)
+        blk = FieldBlock(key=key, cell=cell, material=mat,
+                         density=float(mat.density or 0.0),
+                         X=X.to(self.dtype))
+        model = _lat.material_model(mat)
+        if cell.name == "hex8" and model is not None:
+            blk.model = model
+            blk.lam, blk.mu = (float(x) for x in lame(mat.youngs, mat.nue))
+        else:
+            G, wdet = ops.element_geometry(X, cell)
+            blk.G, blk.wdet = G.to(self.dtype), wdet.to(self.dtype)
+            blk.N = self._t(cell.N)
+        return blk
+
     def _check_supported(self):
         p = self.params
-        if (len(self.block_mat) != 1 or self.ndpn != 3
-                or any(b.cell != "hex8" for b in self.disc.blocks.values())
-                or p.kinem != "nonlinear" or p.tech != "none"
-                or p.mass != "consistent" or p.rayleigh_alpha
-                or p.rayleigh_beta):
+        out = unsupported_blocks(self.disc, self.block_mat)
+        if p.kinem != "nonlinear":
+            out.append(f"kinem {p.kinem!r}")
+        if p.tech != "none":
+            out.append(f"tech {p.tech!r}")
+        if p.mass != "consistent":
+            out.append(f"{p.mass} mass")
+        if p.rayleigh_alpha or p.rayleigh_beta:
+            out.append("Rayleigh damping")
+        if out:
             raise NotImplementedError(
-                "the ported slices support one hex8 block, kinem "
+                "not ported: " + "; ".join(out) + " (the ported solid field "
+                f"takes {', '.join(SOLID_CELLS)} blocks in 3D, kinem "
                 "'nonlinear', tech 'none', consistent mass, no Rayleigh "
-                "damping")
+                "damping)")
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
@@ -187,17 +301,16 @@ class SolidField:
 
     # -- operators (in the field's layout) ---------------------------------
 
-    def _elements(self, u):
-        """General topology: flat dof vector -> element batch (24, E)."""
-        return self.dofmap.gather(u, self.key)
-
-    def _assemble(self, fe):
-        return self.dofmap.scatter_add({self.key: fe})
+    def _assemble(self, fn, *vecs):
+        """General topology: sum over the blocks of fn(block, element
+        batches of vecs), assembled into a flat dof vector."""
+        return self.dofmap.scatter_add({
+            b.key: fn(b, *(self.dofmap.gather(v, b.key) for v in vecs))
+            for b in self.blocks})
 
     def internal_force(self, u):
-        if self.X24 is not None:
-            return self._assemble(sk.hex8_force(
-                self.X24, self._elements(u), self.lam, self.mu, self.model))
+        if self.blocks:
+            return self._assemble(FieldBlock.force, u)
         if self.x is not None:
             return lk.neo_force_gen(self.x, u, self.dN, self.w, self.N,
                                     self.lam, self.mu, self.model)
@@ -205,22 +318,21 @@ class SolidField:
                             self.model)
 
     def tangent(self, u, v, mcoef=0.0):
-        """K(u) v + mcoef * sum_g wdet N N^T v (mcoef includes rho)."""
-        if self.X24 is not None:
-            return self._assemble(sk.hex8_tangent(
-                self.X24, self._elements(u), self._elements(v), self.lam,
-                self.mu, self.model, mcoef))
+        """K(u) v + mcoef * M v, M the consistent mass (each block's
+        density included)."""
+        if self.blocks:
+            return self._assemble(
+                lambda b, ue, ve: b.tangent(ue, ve, mcoef), u, v)
+        c = mcoef * self.density
         if self.x is not None:
             return lk.neo_tangent_gen(self.x, u, v, self.dN, self.w, self.N,
-                                      self.lam, self.mu, self.model, mcoef)
+                                      self.lam, self.mu, self.model, c)
         return lk.neo_tangent(u, v, self.G, self.wdet, self.N, self.lam,
-                              self.mu, self.model, mcoef)
+                              self.mu, self.model, c)
 
     def mass_matvec(self, v):
-        if self.X24 is not None:  # B6 in its mass-only mode
-            return self._assemble(sk.hex8_force(
-                self.X24, self._elements(v), 0.0, 0.0, "svk",
-                mcoef=self.density, stiff=False))
+        if self.blocks:
+            return self._assemble(FieldBlock.mass, v)
         if self.x is not None:  # B4 in its mass-only mode
             return lk.neo_force_gen(self.x, v, self.dN, self.w, self.N, 0.0,
                                     0.0, "svk", mcoef=self.density,
@@ -245,18 +357,19 @@ class SolidField:
                              minlength=self.ndof)
         return self.to_lattice(self._t(f))
 
-    def _element_coords(self):
-        """General topology: float64 element coordinates (E, 8, 3) on the
-        field's device."""
-        conn = self.disc.blocks[self.key].conn
+    def _element_coords(self, key):
+        """General topology: float64 element coordinates (E, nen, 3) of a
+        block on the field's device."""
+        conn = self.disc.blocks[key].conn
         return torch.as_tensor(self.disc.coords[conn], device=self.device)
 
     def lumped_mass(self):
-        if self.X24 is not None:
-            ml = ops.element_lumped_mass(self._element_coords(), self.cell,
-                                         self.density)  # (E, 8)
-            return self._assemble(ml.T.repeat_interleave(3, dim=0)).to(
-                self.dtype)
+        if self.blocks:
+            return self.dofmap.scatter_add({
+                b.key: ops.element_lumped_mass(
+                    self._element_coords(b.key), b.cell,
+                    b.density).T.repeat_interleave(3, dim=0)
+                for b in self.blocks}).to(self.dtype)
         nshape = self.lattice.nshape
         if self.x is not None:  # every element's own geometry
             X = torch.as_tensor(self.disc.coords, device=self.device)
@@ -278,34 +391,45 @@ class SolidField:
         return _lat.collapse_stencil(cols.reshape(24, 24).T)
 
     def assemble_linear_operator(self, mass_shift=0.0, timings=None):
-        """General topology: the linear-elastic stiffness of the mesh plus
-        ``mass_shift`` times the lumped mass, assembled on the host as a
-        scipy CSR matrix in float64, with unit rows and columns on the
-        constrained dofs.  The element matrices come chunk by chunk from
-        the field's device.  ``timings`` (a dict) receives the seconds of
-        the two stages."""
+        """General topology: the linear-elastic stiffness of the mesh (each
+        block from its law's ``youngs`` and ``nue``) plus ``mass_shift``
+        times the lumped mass, assembled on the host as a scipy CSR matrix
+        in float64, with unit rows and columns on the constrained dofs.
+        The element matrices come chunk by chunk from the field's device.
+        ``timings`` (a dict) receives the seconds of the two stages."""
         import scipy.sparse as sp
 
         t0 = time.perf_counter()
-        Xe = self._element_coords()
-        E = Xe.shape[0]
-        vals = np.empty((E, 24, 24))
-        mdiag = None
-        if mass_shift:
-            ml = ops.element_lumped_mass(Xe, self.cell, self.density)
-            mdiag = mass_shift * ml.repeat_interleave(3, dim=1)  # (E, 24)
-        for sl, K in ops.element_stiffness_chunks(Xe, self.cell, self.lam,
-                                                  self.mu):
-            if mdiag is not None:
-                K = K + torch.diag_embed(mdiag[sl])
-            vals[sl] = K.cpu().numpy()
+        rows, cols, vals = [], [], []
+        for b in self.blocks:
+            if not hasattr(b.material, "youngs"):
+                raise NotImplementedError(
+                    f"the linear-elastic operator of block {b.key!r}: "
+                    f"material {type(b.material).__name__} has no youngs "
+                    f"and nue")
+            lam, mu = (float(x) for x in lame(b.material.youngs,
+                                              b.material.nue))
+            Xe = self._element_coords(b.key)
+            E, nd = Xe.shape[0], 3 * b.cell.nen
+            v = np.empty((E, nd, nd))
+            mdiag = None
+            if mass_shift:
+                ml = ops.element_lumped_mass(Xe, b.cell, b.density)
+                mdiag = mass_shift * ml.repeat_interleave(3, dim=1)  # (E, nd)
+            for sl, K in ops.element_stiffness_chunks(Xe, b.cell, lam, mu):
+                if mdiag is not None:
+                    K = K + torch.diag_embed(mdiag[sl])
+                v[sl] = K.cpu().numpy()
+            conn = self.disc.blocks[b.key].conn
+            edof = (conn[:, :, None] * 3
+                    + np.arange(3, dtype=np.int32)).reshape(E, nd)
+            rows.append(np.repeat(edof, nd, axis=1).reshape(-1))
+            cols.append(np.tile(edof, (1, nd)).reshape(-1))
+            vals.append(v.reshape(-1))
         t1 = time.perf_counter()
-        conn = self.disc.blocks[self.key].conn
-        edof = (conn[:, :, None] * 3 + np.arange(3, dtype=np.int32)).reshape(
-            E, 24)
         A0 = sp.coo_matrix(
-            (vals.reshape(-1), (np.repeat(edof, 24, axis=1).reshape(-1),
-                                np.tile(edof, (1, 24)).reshape(-1))),
+            (np.concatenate(vals), (np.concatenate(rows),
+                                    np.concatenate(cols))),
             shape=(self.ndof, self.ndof)).tocsr()  # duplicates summed
         free = self.dbc.free_mask
         D = sp.diags(free.astype(np.float64))
@@ -321,7 +445,7 @@ class SolidField:
         reused across Newton and time steps."""
         from fourc_tpu_torch.linalg.amg import SmoothedAggregationAMG
 
-        if self.X24 is None:
+        if self.lattice is not None:
             raise NotImplementedError(
                 "precond 'amg' is ported for meshes of general topology; a "
                 "lattice mesh takes 'gmg'")
@@ -385,13 +509,18 @@ def _newmark_updates(dt, d_new, d_n, v_n, a_n, beta, gamma):
 
 def make_step(f: SolidField, dt: float | None = None):
     """Build ``step(state) -> (state, stats)`` for the configured
-    integrator (gen-alpha with a multigrid preconditioner on the ported
-    slices)."""
+    integrator (gen-alpha with a multigrid preconditioner, or with a direct
+    solve and no preconditioner, on the ported slices)."""
     dt = float(dt if dt is not None else f.params.dt)
     if f.params.dyntype != "genalpha":
         raise NotImplementedError(
             f"DYNAMICTYPE {f.params.dyntype!r} is not ported (genalpha is)")
-    if f.params.precond not in ("gmg", "amg"):
+    if f.params.newton.lin_method not in ("cg", "direct"):
+        raise NotImplementedError(
+            f"linear solver {f.params.newton.lin_method!r} is not ported "
+            f"(cg and direct are)")
+    if (f.params.newton.lin_method == "cg"
+            and f.params.precond not in ("gmg", "amg")):
         raise NotImplementedError(
             f"precond {f.params.precond!r} is not ported (gmg and amg are)")
     return _make_genalpha_step(f, dt)
@@ -399,7 +528,11 @@ def make_step(f: SolidField, dt: float | None = None):
 
 def _static_precond(f: SolidField, mass_shift: float = 0.0):
     """The state-independent preconditioner, built once per step function:
-    GMG on a lattice, SA-AMG on general topology."""
+    GMG on a lattice, SA-AMG on general topology, none for the direct
+    solve (the reference builds a block-Jacobi there that the direct solve
+    never reads)."""
+    if f.params.newton.lin_method == "direct":
+        return None
     if f.params.precond == "amg":
         return f._build_amg(mass_shift)
     if f.lattice is None:

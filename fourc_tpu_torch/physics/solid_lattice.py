@@ -12,10 +12,10 @@ functions are the identity and everything stays flat.
 
 The Newton operator is the fused tangent of the residual,
 ``(1 - af) * (K(u) v + mcoef * M v)`` with
-``mcoef = rho (1 - am) / ((1 - af) beta dt^2)``: one tangent-kernel pass
-per Krylov iteration (the reference takes ``jax.jvp`` of the residual,
-which on general geometry runs the tangent and the mass kernels; the sum
-is the same).
+``mcoef = (1 - am) / ((1 - af) beta dt^2)`` and M the consistent mass with
+each block's density: one tangent-kernel pass per Krylov iteration (the
+reference takes ``jax.jvp`` of the residual, which on general geometry runs
+the tangent and the mass kernels; the sum is the same).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ def from_lattice_state(f, state):
 def make_lattice_genalpha_step(f, dt: float, precond):
     ga = f.params.genalpha
     am, af, beta, gamma = ga.alpha_m, ga.alpha_f, ga.beta, ga.gamma
-    mcoef = f.density * (1 - am) / ((1 - af) * beta * dt * dt)
+    mcoef = (1 - am) / ((1 - af) * beta * dt * dt)
 
     def matvec_fn(u, v):
         return (1 - af) * f.tangent(u, v, mcoef)

@@ -1,10 +1,11 @@
 """Structure problem driver: deck -> SolidField -> time loop.
 
 Counterpart of fourc_tpu/physics/structure_driver.py for the solid field the
-port carries: one hex8 block of a law with a kernel (Neo-Hooke, SVK),
-nonlinear kinematics, gen-alpha with consistent mass, Newton with CG and a
-multigrid preconditioner (``gmg`` on a lattice, ``amg`` or ``gmg``'s SA-AMG
-fallback on general topology), Dirichlet conditions and surface tractions.
+port carries: hex8, tet4 and wedge6 blocks of laws with a PK2 stress
+(Neo-Hooke, SVK, ElastHyper), nonlinear kinematics, gen-alpha with
+consistent mass, Newton with CG and a multigrid preconditioner (``gmg`` on
+a lattice, ``amg`` or ``gmg``'s SA-AMG fallback on general topology) or
+with the direct solver, Dirichlet conditions and surface tractions.
 ``check_supported`` names every setting of a deck that the reference
 honours and the port does not carry, before anything is built; the deck
 keys that the reference ignores for a structure problem stay ignored.
@@ -12,13 +13,11 @@ keys that the reference ignores for a structure problem stay ignored.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.mesh import _detect_structured
 from fourc_tpu_torch.materials import make_material
-from fourc_tpu_torch.ops.lattice import material_model
 from fourc_tpu_torch.physics import driver as drv
 from fourc_tpu_torch.physics import solid as ps
 from fourc_tpu_torch.physics.solid_lattice import from_lattice_state
@@ -69,8 +68,9 @@ def check_supported(deck, disc_name="structure"):
         out.append(f"prestress {dyn['prestress']!r}")
     if dyn["timada_kind"] != "none":
         out.append(f"timada_kind {dyn['timada_kind']!r}")
-    if solver["method"] != "cg":
-        out.append(f"solver.method {solver['method']!r} (cg is ported)")
+    if solver["method"] not in ("cg", "direct"):
+        out.append(f"solver.method {solver['method']!r} (cg and direct are "
+                   f"ported)")
     if solver["method"] != "direct" and solver["precond"] not in ("gmg",
                                                                   "amg"):
         out.append(f"solver.precond {solver['precond']!r} (gmg and amg are "
@@ -92,21 +92,23 @@ def check_supported(deck, disc_name="structure"):
             out.append(str(e))
     disc = deck.disc.get(disc_name)
     if disc is not None:
-        blocks = list(disc.blocks.values())
-        if (len(blocks) != 1 or blocks[0].cell != "hex8"
-                or disc.dim != 3):
-            out.append(f"element blocks {[b.cell for b in blocks]} (one "
-                       f"hex8 block in 3D is ported)")
-        for blk in blocks:
-            for mid in np.unique(blk.mat_id):
-                m = mats.get(int(mid))
-                if m is not None and material_model(m) is None:
-                    out.append(f"material {int(mid)} "
-                               f"{deck.materials[int(mid)]['type']!r} (no "
-                               f"kernel: neohooke and stvenantkirchhoff "
-                               f"have one)")
-        if solver["precond"] == "amg" and any(
-                _detect_structured(disc, b) is not None for b in blocks):
+        block_mat = {key: mats[int(blk.mat_id[0])]
+                     for key, blk in disc.blocks.items()
+                     if int(blk.mat_id[0]) in mats}
+        out += ps.unsupported_blocks(disc, block_mat)
+        multigrid = (solver["method"] != "direct"
+                     and solver["precond"] in ("gmg", "amg"))
+        for key, m in block_mat.items():
+            if multigrid and not hasattr(m, "youngs"):
+                out.append(f"element block {key!r}: material "
+                           f"{type(m).__name__} under solver.precond "
+                           f"{solver['precond']!r} (SA-AMG assembles a "
+                           f"linear-elastic operator from youngs and nue)")
+        if (solver["method"] != "direct" and solver["precond"] == "amg"
+                and len(block_mat) == len(disc.blocks)
+                and ps.takes_lattice_path(disc, block_mat)
+                and _detect_structured(
+                    disc, next(iter(disc.blocks.values()))) is not None):
             out.append("solver.precond 'amg' on a lattice mesh (SA-AMG is "
                        "ported for general topology; a lattice takes 'gmg')")
     for nb in deck.conditions.get(disc_name, {}).get("neumann", ()):

@@ -1,8 +1,10 @@
 """Deck-driven entry point of the port: loader, driver, result tests, CLI.
 
-The two gate decks run through ``fourc_tpu_torch.app.main`` on the CPU in
-float64 (the kernels' twins) and must meet the RESULT DESCRIPTION anchors
-that the JAX package wrote into them.  The loader is held against
+The gate decks run through ``fourc_tpu_torch.app.main`` on the CPU in
+float64 (the kernels' twins and the element route) and must meet their
+RESULT DESCRIPTION anchors: those that the JAX package wrote into the
+lattice, AMG and tet4 decks, and those quoted verbatim from 4C in the two
+converted hex8 and wedge6 decks.  The loader is held against
 ``fourc_tpu.io.deck.load`` (numpy loading, no jit): meshes, sets, validated
 sections, conditions and FUNCTs must be identical.  Every other structure
 deck in the repository is refused with NotImplementedError before the field
@@ -31,7 +33,12 @@ LATTICE = os.path.join(ROOT, "decks", "solid_genalpha_lattice.yaml")
 AMG = os.path.join(ROOT, "decks", "solid_unstructured_amg.yaml")
 HEX8_DYNAMIC = os.path.join(ROOT, "decks", "ref_converted",
                             "solid_ele_hex8_standard_dynamic.yaml")
-GATE_DECKS = {LATTICE: 1, AMG: 6}  # deck -> number of anchors
+WEDGE6_DYNAMIC = os.path.join(ROOT, "decks", "ref_converted",
+                              "solid_ele_wedge6_standard_dynamic.yaml")
+TET4 = os.path.join(ROOT, "decks", "solid_tet4_unstructured.yaml")
+# deck -> number of anchors
+GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
+              TET4: 6}
 
 
 def _structure_decks():
@@ -81,7 +88,7 @@ def test_explicit_geometry_deck_meets_the_amg_anchors():
                                .tolist()}},
     }
     res = driver.run(data, device="cpu")
-    assert res.fields["structure"].f.X24 is not None  # general topology
+    assert res.fields["structure"].f.blocks  # general topology
     tests = result_test.run_result_tests(res.deck.result_tests, res)
     assert len(tests) == 6 and all(t.ok for t in tests), [str(t) for t in tests]
 
@@ -130,7 +137,8 @@ def _same_faces(got, want):
         np.testing.assert_array_equal(a.conn, b.conn)
 
 
-@pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC],
+@pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC, WEDGE6_DYNAMIC,
+                                  TET4],
                          ids=lambda p: os.path.basename(p))
 def test_loader_matches_reference(path):
     from fourc_tpu.io import deck as jdeck

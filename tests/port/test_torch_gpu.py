@@ -271,3 +271,43 @@ def test_kernel_rejects_mixed_devices(cuda):
     _, _, field, G, wdet, _ = _inputs(SHAPES[0], torch.float64, cuda, 5)
     with pytest.raises(ValueError):
         lk.neo_force(field(1e-2), G.cpu(), wdet, 1.0, 1.0)
+
+
+# the element route (plain PyTorch, no kernel): the same ops on the card
+# and on the CPU
+ROUTE_MATERIALS = {
+    "neohooke": {"type": "neohooke", "youngs": 500.0, "nue": 0.3,
+                 "density": 2.7},
+    "elasthyper": {"type": "elasthyper", "density": 2.7, "summands": [
+        {"type": "coupneohooke", "youngs": 500.0, "nue": 0.25}]},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mname", list(ROUTE_MATERIALS))
+@pytest.mark.parametrize("cell", ["hex8", "tet4", "wedge6"])
+def test_element_route_on_the_card_matches_the_cpu(cuda, dtype, mname,
+                                                   cell):
+    from fourc_tpu_torch.core import gridgen
+    from fourc_tpu_torch.materials import make_material
+
+    disc = gridgen.box(3, 2, 2, cell=cell)
+    rng = np.random.default_rng(21)
+    conn = disc.blocks[cell].conn
+    c = cells.get_cell(cell)
+    X = disc.coords + rng.uniform(-0.05, 0.05, disc.coords.shape)
+    mat = make_material(dict(ROUTE_MATERIALS[mname]))
+    nodal = {"X": X, "u": rng.normal(size=X.shape) * 0.05,
+             "v": rng.normal(size=X.shape)}
+    out = {}
+    for device, dt in ((cuda, dtype), ("cpu", torch.float64)):
+        X64, u, v = (torch.as_tensor(nodal[k][conn].reshape(len(conn), -1).T
+                                     .copy(), device=device)
+                     for k in ("X", "u", "v"))
+        G, wdet = (t.to(dt) for t in sops.element_geometry(X64, c))
+        N = torch.as_tensor(c.N, dtype=dt, device=device)
+        u, v = u.to(dt), v.to(dt)
+        out[device] = (sops.element_force(G, wdet, u, mat),
+                       sops.element_tangent(G, wdet, u, v, mat, 137.5, N))
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert _rel(got.cpu().double(), want) <= TOL[dtype]

@@ -400,7 +400,9 @@ def test_lattice_block_has_no_general_assembly():
 def test_field_is_general_topology(problem):
     fp = problem.fp
     assert fp.lattice is None and fp.x is None
-    assert fp.X24.shape == (24, N_STEP ** 3) and fp.X24.dtype == torch.float64
+    (blk,) = fp.blocks
+    assert blk.model == "neohooke" and blk.X.dtype == torch.float64
+    assert blk.X.shape == (24, N_STEP ** 3)
     assert fp.free.shape == (fp.ndof,)
     v = torch.arange(fp.ndof, dtype=torch.float64)
     assert fp.to_lattice(v) is v and fp.from_lattice(v) is v

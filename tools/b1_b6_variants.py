@@ -181,7 +181,7 @@ class B6Case:
             torch.as_tensor(a, dtype=dtype, device="cuda").contiguous()
             for a in nodal)
         self.E = self.X.shape[1]
-        self.tab = sops.hex8_tables(self.X.device, dtype)
+        self.tab = sops.cell_tables("hex8", self.X.device, dtype)
         self.lam, self.mu = lame(1.0e4, 0.3)
 
     @classmethod

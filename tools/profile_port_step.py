@@ -2,12 +2,14 @@
 
 Usage, from the repository root on a machine with a CUDA device:
 
-    python tools/profile_port_step.py [n] [steps] [flagship|jittered|permuted]
+    python tools/profile_port_step.py [n] [steps] [mesh]
 
-Builds the flagship problem of chip_smoke.py on one of its meshes (default
-n=72, float32, flagship; the permuted box's full size is n=56), runs two
-warm-up steps, then traces ``steps`` steps (default 2) with torch.profiler.
-Prints the device-time table by kernel, the device busy share (summed
+Builds the flagship problem of chip_smoke.py on one of its meshes,
+flagship, jittered, permuted or tet4 (default n=72, float32, flagship; the
+permuted box's full size is n=56; ``tet4`` is the permuted box split into
+6 tet4 per hex, chip_smoke.py phase 9 (c)), runs two warm-up steps, then
+traces ``steps`` steps (default 2) with torch.profiler.  Prints the
+device-time table by kernel, the device busy share (summed
 kernel time over the host wall time of the traced steps) and the host time
 per CG iteration.
 """
@@ -34,10 +36,11 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 72
     n_steps = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     mesh = sys.argv[3] if len(sys.argv) > 3 else "flagship"
-    if mesh not in cs.FULL_N:
-        raise ValueError(f"mesh must be one of {list(cs.FULL_N)}, "
-                         f"not {mesh!r}")
-    f = cs.build_problem(n, "cuda", torch.float32, mesh)
+    meshes = {**{m: (m, "hex8") for m in cs.FULL_N},
+              "tet4": ("permuted", "tet4")}
+    if mesh not in meshes:
+        raise ValueError(f"mesh must be one of {list(meshes)}, not {mesh!r}")
+    f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
     state = ps.compute_initial_state(f, ps.init_state(f))
     step = cs.make_step(f, mesh)
     for _ in range(2):
