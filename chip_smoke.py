@@ -61,7 +61,25 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
        BENCH_MESH=permuted at n=56 (1,053,696 tet4 elements, 555,579
        dofs; the jittered, permuted box split 6 tets per hex) the same way
        as phases 5-7, none of B1-B7 launched, with the element route's
-       force and tangent timed at full size.
+       force and tangent timed at full size;
+10. the other integrators, lumped mass, Rayleigh damping, kinem linear,
+   block-Jacobi and Zienkiewicz-Xie adaptivity:
+   (a) decks/solid_rayleigh_lumped_wide.yaml, solid_ost_vibration.yaml,
+       solid_explicit_wave.yaml and solid_timada_pulse.yaml through
+       ``app.main.main`` on the card in float64 (6/6 each), then through
+       ``driver.run`` on the card and on the CPU: d, v, a after every
+       step agree to 1e-11 of their largest entry over the run, each
+       deck's Newton/CG counts and B1-B7 launches printed and checked, the
+       timada deck's accepted dt sequence the CPU's;
+   (b) ``rayleigh_wide``: bench.py's BENCH_RAYLEIGH=1 problem (the
+       flagship with m_damp 0.3, k_damp 0.002 and lumped mass) at n=32
+       (1 warm-up, 5 timed steps) and n=72 (1 + 2), B1-B3 launched, with
+       the damping force (B2, mcoef 0) and D^2f timed by CUDA events;
+   (c) the flagship box at n=72 under statics (2 load steps) and
+       one-step-theta (theta 0.66, 1 + 2 steps), B1-B3 launched;
+   (d) the flagship box at n=72 under explicit central differences with
+       lumped mass, dt a quarter of the CFL limit, 100 steps with one B1
+       launch each and every entry finite.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last three lines are a JSON object with per-kernel results (launches on
@@ -583,12 +601,14 @@ def phase_kernels():
     return results
 
 
-def build_problem(n, device, dtype, mesh="flagship", cell="hex8"):
+def build_problem(n, device, dtype, mesh="flagship", cell="hex8",
+                  changes=None):
     """bench.py's problem (f32 Newton settings for float32) on one of its
     meshes: ``flagship`` (the uniform box), ``jittered`` (its
     ``unstructured_1M`` variant) or ``permuted`` (``permuted_500k``, whose
     ``gmg`` falls back to SA-AMG), of hex8 or (BENCH_CELL=tet4) tet4
-    cells."""
+    cells; ``changes`` sets SolidParams fields (e.g. RAYLEIGH, bench.py's
+    BENCH_RAYLEIGH=1, or another integrator)."""
     disc = make_mesh(n, mesh, cell)
     ndof = disc.n_nodes * 3
     mat = materials.make_material({"type": "neohooke", "youngs": 1.0e4,
@@ -607,6 +627,8 @@ def build_problem(n, device, dtype, mesh="flagship", cell="hex8"):
         nw.combine = "or"
     nw.max_iter, nw.stag_tol = 12, 0.0
     nw.lin_maxiter, nw.lin_rtol = 1000, 1e-4
+    for key, val in (changes or {}).items():
+        setattr(params, key, val)
     fm = functions.FunctionManager()
     fm.add(1, "sin(50.0*t)*(1-exp(-t/0.06))")
     dbc = [conditions.DirichletBC(disc.node_sets["zmin"], [1, 1, 1],
@@ -668,16 +690,18 @@ def _log_amg(name, M):
 
 
 def phase_main_path(name, n_steps=5, mesh=None, cell="hex8", n=None,
-                    after=None):
+                    after=None, changes=None, path=None):
     """One path at full size (phases 5-7; the tet4 path of phase 9 (c) is
-    ``name`` "tet4" on the ``permuted`` mesh); returns the launches of its
+    ``name`` "tet4" on the ``permuted`` mesh, phase 10's are the flagship
+    box with ``changes`` to its SolidParams); returns the launches of its
     run and what the deck phase compares with: (Newton, CG) of every step,
-    max|d|, ms/step.  ``after(f, state)`` runs after the launches are
+    max|d|, ms/step.  The kernels of ``path`` (default ``name``) must be
+    launched and no other.  ``after(f, state)`` runs after the launches are
     read."""
     n = n or FULL_N[name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    f = build_problem(n, "cuda", torch.float32, mesh or name, cell)
+    f = build_problem(n, "cuda", torch.float32, mesh or name, cell, changes)
     torch.cuda.synchronize()
     kind = ("general topology" if f.lattice is None else
             "general geometry" if f.x is not None else "uniform geometry")
@@ -728,7 +752,7 @@ def phase_main_path(name, n_steps=5, mesh=None, cell="hex8", n=None,
               f"max|d| {float(d.abs().max()):.4e}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(name, f"launches {counts}")
-    _check_launched(f"the {name} path", name, counts)
+    _check_launched(f"the {name} path", path or name, counts)
     if after is not None:
         after(f, state)
     return counts, {"steps": [(st["iters"], st["lin_iters"])
@@ -937,6 +961,143 @@ def phase_elements():
                     n=FULL_N["permuted"], after=after)
 
 
+INTEGRATOR_DECKS = {  # deck -> the kernels its run launches on the card
+    "decks/solid_rayleigh_lumped_wide.yaml": ("stencil", "force", "tangent"),
+    "decks/solid_ost_vibration.yaml": ("stencil", "force", "tangent",
+                                       "solid_tangent"),
+    "decks/solid_explicit_wave.yaml": (),
+    "decks/solid_timada_pulse.yaml": ("solid_force",),
+}
+# phase 10: GPU against CPU, float64: d, v and a after every step, the
+# largest difference over the run relative to the largest entry over the run
+# (a final state may lie near a zero crossing, as the timada deck's d does)
+DECK_TOL = 1e-11
+# bench.py's BENCH_RAYLEIGH=1 variant of the flagship problem
+RAYLEIGH = {"rayleigh_alpha": 0.3, "rayleigh_beta": 0.002, "mass": "lumped"}
+# (elements per axis, timed steps): the reference's n=32 and the flagship's
+RAYLEIGH_SIZES = ((32, 5), (72, 2))
+
+
+def _time_damping(f, state):
+    """Device ms per call (CUDA events, 10 calls) of the two damping terms
+    of the Rayleigh step at the state: the damping force K(d) v (B2 with
+    mcoef = 0) and D^2f(d)[v, .] applied (its per-iterate set-up timed
+    apart)."""
+    u = state["d"]
+    v = torch.where(f.free, torch.randn_like(u), 0.0) * 1e-2
+    apply = f.force_hessian_at(u, v)
+    return {"damping force (B2, mcoef 0)": _time(lambda: f.tangent(u, v),
+                                                 reps=10),
+            "D2f set-up": _time(lambda: f.force_hessian_at(u, v), reps=10),
+            "D2f apply": _time(lambda: apply(v), reps=10)}
+
+
+def explicit_problem(n):
+    """The flagship box at n, float32, under explicit central differences
+    with lumped mass and dt a quarter of the CFL limit
+    h / sqrt((lambda + 2 mu) / rho): (field, step, CFL limit, dt)."""
+    f = build_problem(n, "cuda", torch.float32, "flagship",
+                      changes={"dyntype": "explicit", "mass": "lumped"})
+    h = min(f.lattice.h)
+    cfl = h / ((f.lam + 2 * f.mu) / f.block_mat[f.key].density) ** 0.5
+    dt = 0.25 * cfl
+    return f, ps.make_step(f, dt=dt), cfl, dt
+
+
+def phase_integrators():
+    """Phase 10: statics, one-step-theta, explicit, lumped mass, Rayleigh
+    damping, kinem linear, block-Jacobi and Zienkiewicz-Xie adaptivity."""
+    # (a) the four gate decks: anchors through the CLI on the card, float64;
+    # GPU against CPU through driver.run, the launches, the timada deck's
+    # accepted dt sequence
+    for path, kernels in INTEGRATOR_DECKS.items():
+        reset_launches()
+        rc, out = _cli([path, "--device", "cuda"])
+        counts = launches()
+        if rc != 0 or "result tests: 6/6 passed" not in out:
+            raise RuntimeError(f"{path}: rc {rc}, RESULT DESCRIPTION not met "
+                               f"on the card")
+        runs, agg = {}, {}
+        for device in ("cuda", "cpu"):
+            runs[device] = states = []
+            res = driver.run(path, device=device, callbacks=[
+                lambda _, st, __, out=states: out.append(
+                    {k: st[k].cpu().clone() for k in ("d", "v", "a")})])
+            agg[device] = res.stats["structure"]
+        if len(runs["cuda"]) != len(runs["cpu"]):
+            raise RuntimeError(f"{path}: {len(runs['cuda'])} steps on the "
+                               f"card, {len(runs['cpu'])} on the CPU")
+        errs = []
+        for k in ("d", "v", "a"):
+            diff = max(float((g[k] - c[k]).abs().max())
+                       for g, c in zip(runs["cuda"], runs["cpu"]))
+            errs.append(diff / max(float(c[k].abs().max())
+                                   for c in runs["cpu"]))
+        launched = {KERNELS[k][0]: c for k, c in counts.items() if c}
+        log("integrators", f"{path} float64: newton "
+                           f"{agg['cuda']['newton_iters']}, cg "
+                           f"{agg['cuda']['lin_iters']} on the card "
+                           f"(CPU: {agg['cpu']['newton_iters']}, "
+                           f"{agg['cpu']['lin_iters']}); GPU vs CPU over "
+                           f"{len(runs['cpu'])} steps, d / v / a max rel err "
+                           f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
+                           f"(tol {DECK_TOL:g}); launches "
+                           f"{launched or 'none of B1-B7'}")
+        if not max(errs) <= DECK_TOL:
+            raise RuntimeError(f"{path}: GPU run disagrees with the CPU run")
+        if {k for k, c in counts.items() if c} != set(kernels):
+            raise RuntimeError(f"{path}: launches {counts}")
+        if "dt_history" in agg["cuda"]:
+            hist = agg["cuda"]["dt_history"]
+            log("integrators", f"{path}: {len(hist)} accepted steps, dt "
+                               f"levels {agg['cuda']['dt_levels']}, "
+                               f"{agg['cuda']['rejections']} rejections, the "
+                               f"same sequence on the CPU: "
+                               f"{hist == agg['cpu']['dt_history']}")
+            if hist != agg["cpu"]["dt_history"]:
+                raise RuntimeError(f"{path}: the accepted dt sequence differs "
+                                   f"from the CPU's")
+
+    # (b) rayleigh_wide at the reference's size and at the flagship's
+    def after(f, state):
+        times = _time_damping(f, state)
+        log("rayleigh", f"n={f.lattice.nshape[0]}: ms per call (device, "
+                        "CUDA events, float32): " + ", ".join(
+                            f"{k} {v:.3f}" for k, v in times.items()))
+
+    for n, steps in RAYLEIGH_SIZES:
+        phase_main_path("rayleigh_wide", n_steps=steps, mesh="flagship",
+                        n=n, changes=RAYLEIGH, path="flagship", after=after)
+    # (c) the flagship box under statics (2 load steps) and one-step-theta
+    n = FULL_N["flagship"]
+    phase_main_path("statics", n_steps=1, mesh="flagship", n=n,
+                    changes={"dyntype": "statics"}, path="flagship")
+    phase_main_path("onesteptheta", n_steps=2, mesh="flagship", n=n,
+                    changes={"dyntype": "onesteptheta", "theta": 0.66},
+                    path="flagship")
+    # (d) explicit central differences, lumped mass, below the CFL limit
+    f, step, cfl, dt = explicit_problem(n)
+    state = ps.compute_initial_state(f, ps.init_state(f))
+    state, _ = step(state)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        state, stats = step(state)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 100
+    counts = launches()
+    finite = all(bool(torch.isfinite(state[k]).all())
+                 for k in ("d", "v", "a"))
+    log("explicit", f"n={n}: {f.ndof} dofs, CFL limit h / c = {cfl:.4e}, dt "
+                    f"{dt:.4e}; 100 steps {ms:.2f} ms/step, max|d| "
+                    f"{float(state['d'].abs().max()):.4e}, every entry "
+                    f"finite: {finite}; launches {counts}")
+    if not finite or counts != {**{k: 0 for k in counts}, "force": 100}:
+        raise RuntimeError("explicit: non-finite state or launches other "
+                           "than one B1 per step")
+
+
 def main():
     smi_line = phase_environment()
     phase_build()
@@ -946,6 +1107,7 @@ def main():
     counts = {name: run[0] for name, run in runs.items()}
     phase_decks(runs["flagship"][1])
     phase_elements()
+    phase_integrators()
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

@@ -1,8 +1,9 @@
 """The device an entry point runs on.
 
-The port's entry points (``SolidField``, ``StructuredGMG``,
-``gmg.build_for_solid``) run on the CUDA card unless the caller asks for
-the CPU, where the kernel wrappers take their plain PyTorch twins.  There is
+The port's entry points (``SolidField``, ``StructuredGMG``; objects built
+from a field, such as ``gmg.build_for_solid``'s hierarchy, take its device)
+run on the CUDA card unless the caller asks for the CPU, where the kernel
+wrappers take their plain PyTorch twins.  There is
 no silent fallback: asking for CUDA without a CUDA device raises.
 """
 

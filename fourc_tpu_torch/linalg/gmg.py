@@ -285,13 +285,10 @@ class StructuredGMG:
         return torch.where(self.levels[0].free, self.v_cycle(r), r)
 
 
-def build_for_solid(field, mass_shift=0.0, device="cuda"):
-    """GMG for a SolidField on a hex8 lattice, built on ``device``, which
-    must be the field's."""
-    device = resolve_device(device)
-    if device != field.device:
-        raise ValueError(f"GMG on {device} for a field on {field.device}")
+def build_for_solid(field, mass_shift=0.0):
+    """GMG for a SolidField on a hex8 lattice, on the field's device and in
+    its dtype."""
     return StructuredGMG(field.disc, field.ndpn, field.dbc.free_mask,
                          field.lam, field.mu, rho=field.density,
-                         mass_shift=mass_shift, device=device,
+                         mass_shift=mass_shift, device=field.device,
                          dtype=field.dtype)

@@ -308,6 +308,71 @@ def neo_jvp_ref(u, v, G, wdet, lam, mu, model="neohooke", N=None, mcoef=0.0):
     return _assemble(fe, u)
 
 
+def neo_force_hessian_at(u, w, G, wdet, lam, mu, model="neohooke"):
+    """dv -> D^2f(u)[w, dv], the second directional derivative of the
+    internal force of ``neo_force_ref`` on a uniform lattice: the
+    derivative along dv of the tangent apply K(u) w, which the Newton
+    operator of stiffness-proportional Rayleigh damping needs.  What
+    depends on u and w alone is computed here, once.
+
+    The kinematics are propagated by hand.  With F = I + H, A = 2E and
+    A(H) = H + H^T + H^T H: Aw = F^T Hw + Hw^T F, Ad likewise, and
+    A2 = Hw^T Hd + Hd^T Hw;
+    D^2P = Hw DS[Ad] + Hd DS[Aw] + F (D^2S[Aw, Ad] + DS[A2]).  The stress
+    derivatives are in closed form.  Neo-Hooke, with X = C^-1, S = X M,
+    M = mu A + lam lnJ I and lnJ'[a] = tr(X a) / 2:
+    DS[a] = X (mu a + lam lnJ'[a] I) - X a S and
+    D^2S[a, b] = -X (b DS[a] + a DS[b]) - lam tr(X a X b) X / 2.
+    SVK: DS[a] = lam tr(a) I / 2 + mu a, D^2S = 0.  The 8 Gauss points ride
+    along a batch axis.  No kernel computes this (the reference
+    differentiates its XLA stencil twice), so this is its port on every
+    device."""
+    G, wdet = _as(G, u), _as(wdet, u)
+
+    def grad(x):  # H[i, j, g, ...] = sum_a x[a, i, ...] G[g, a, j]
+        return torch.einsum("ai...,gaj->ijg...", torch.stack(_corners(x)), G)
+
+    H, Hw = grad(u), grad(w)
+    eye = gm.eye3l(H)
+    F = H + eye
+
+    def dA(Hx):
+        FtHx = gm.tmatmul3l(F, Hx)
+        return FtHx + FtHx.transpose(0, 1)
+
+    if model == "svk":
+        def dS(a):
+            return 0.5 * lam * gm.tr3l(a) * eye + mu * a, None
+    else:
+        S, (X, _, _) = _neo_stress(H + H.transpose(0, 1)
+                                   + gm.tmatmul3l(H, H), lam, mu)
+
+        def dS(a):
+            Xa = gm.matmul3l(X, a)
+            return (gm.matmul3l(X, mu * a + 0.5 * lam * gm.tr3l(Xa) * eye)
+                    - gm.matmul3l(Xa, S)), Xa
+
+    Aw = dA(Hw)
+    dSw, Xw = dS(Aw)
+    wg = wdet.reshape((1, 1, -1) + (1,) * (H.dim() - 3))
+
+    def apply(dv):
+        Hd = grad(dv)
+        Ad = dA(Hd)
+        A2 = gm.tmatmul3l(Hw, Hd)
+        dSd, Xd = dS(Ad)
+        T = dS(A2 + A2.transpose(0, 1))[0]  # DS[A2]
+        if model != "svk":  # + D^2S[Aw, Ad]
+            trXX = (Xw * Xd.transpose(0, 1)).sum(dim=(0, 1))
+            T = T - gm.matmul3l(X, gm.matmul3l(Ad, dSw)
+                                + gm.matmul3l(Aw, dSd)) - 0.5 * lam * trXX * X
+        D2P = (gm.matmul3l(Hw, dSd) + gm.matmul3l(Hd, dSw)
+               + gm.matmul3l(F, T))
+        return _assemble(torch.einsum("ijg...,gaj->ai...", D2P * wg, G), dv)
+
+    return apply
+
+
 def _geom_gp(xe, dN_g, w_g):
     """Geometry of one Gauss point of every real element from its corner
     coordinates xe (8, 3, nx, ny, nz): cartesian shape gradients

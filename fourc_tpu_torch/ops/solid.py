@@ -21,9 +21,10 @@ a, one column per element.
   SVK, and its hand-propagated derivative).  They run on CPU tensors only;
   a CUDA tensor goes to the kernels.
 - ``element_force`` and ``element_tangent``: the element route, the
-  reference's ``_internal_force_einsum`` for 3D nonlinear kinematics and
-  its ``jax.jvp``, for any ported cell and any material with a
-  ``pk2_from_E`` (the blocks no kernel carries: tet4, wedge6, ElastHyper).
+  reference's ``_internal_force_einsum`` for 3D nonlinear or linear
+  kinematics and its ``jax.jvp``, for any ported cell and any material
+  with a ``pk2_from_E`` (the blocks no kernel carries: tet4, wedge6,
+  ElastHyper, and every block under ``kinem`` linear).
   The reference computes these blocks in XLA, not in a Pallas kernel, so
   this plain PyTorch route is their port on every device.  The geometry
   (``element_geometry``) is computed once per mesh; the tangent
@@ -230,37 +231,53 @@ def _green_lagrange(H):
     return 0.5 * (H + H.transpose(0, 1) + gm.tmatmul3l(H, H))
 
 
-def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True):
+def _sym(H):
+    return 0.5 * (H + H.transpose(0, 1))
+
+
+def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True,
+                  kinem="nonlinear"):
     """Total-Lagrangian internal force f = sum_g wdet_g P(F_g) G_g of an
     element batch (when ``stiff``) plus ``mcoef * sum_g wdet_g N N^T u``
     (the consistent mass, when mcoef != 0; N (g, nen) is then required):
-    u (nen*3, E) -> (nen*3, E)."""
+    u (nen*3, E) -> (nen*3, E).  With ``kinem`` "linear" the stress is the
+    law's at the small strain, sigma = S(eps), eps = sym grad u (the
+    reference's ``stress_small``: exact for SVK, nonlinear in eps for
+    Neo-Hooke), and f = sum_g wdet_g sigma G_g."""
     nen, _, _, E = G.shape
     ut = u.reshape(nen, 3, E)
     out = torch.zeros_like(ut)
     if stiff:
         H = _grad(ut, G)
-        S = material.pk2_from_E(_green_lagrange(H))
-        P = gm.matmul3l(H + gm.eye3l(H), S)
+        if kinem == "linear":
+            P = material.pk2_from_E(_sym(H))
+        else:
+            S = material.pk2_from_E(_green_lagrange(H))
+            P = gm.matmul3l(H + gm.eye3l(H), S)
         out = out + _integrate(P * wdet, G)
     if mcoef:
         out = out + mcoef * _mass(wdet, N, ut)
     return out.reshape(nen * 3, E)
 
 
-def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None):
+def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None,
+                    kinem="nonlinear"):
     """Directional derivative of ``element_force`` along v plus
     ``mcoef * sum_g wdet_g N N^T v``: with dH = grad v and F = I + H,
     dE = (dH^T F + F^T dH) / 2, dS = the stress's derivative along dE
-    (forward-mode AD of ``pk2_from_E``) and dP = dH S + F dS."""
+    (forward-mode AD of ``pk2_from_E``) and dP = dH S + F dS; with
+    ``kinem`` "linear" dP = the stress's derivative at eps along sym dH."""
     nen, _, _, E = G.shape
     ut, vt = u.reshape(nen, 3, E), v.reshape(nen, 3, E)
     H, dH = _grad(ut, G), _grad(vt, G)
-    F = H + gm.eye3l(H)
-    FtdH = gm.tmatmul3l(F, dH)
-    S, dS = torch.func.jvp(material.pk2_from_E, (_green_lagrange(H),),
-                           (0.5 * (FtdH + FtdH.transpose(0, 1)),))
-    dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
+    if kinem == "linear":
+        _, dP = torch.func.jvp(material.pk2_from_E, (_sym(H),), (_sym(dH),))
+    else:
+        F = H + gm.eye3l(H)
+        FtdH = gm.tmatmul3l(F, dH)
+        S, dS = torch.func.jvp(material.pk2_from_E, (_green_lagrange(H),),
+                               (_sym(FtdH),))
+        dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
     out = _integrate(dP * wdet, G)
     if mcoef:
         out = out + mcoef * _mass(wdet, N, vt)

@@ -2,9 +2,10 @@
 
 Counterpart of fourc_tpu/physics/driver.py for structure problems: ``run``
 dispatches a deck, ``time_loop`` advances a field with the reference's
-DIVERCONT handling, ``newton_params_from`` maps the deck's Newton and solver
-settings.  Every other problem type, the error-controlled adaptive time
-loop, sharding over several devices and restarts are not ported.
+DIVERCONT handling, ``time_loop_adaptive`` with its error-controlled
+(Zienkiewicz-Xie) step size, ``newton_params_from`` maps the deck's Newton
+and solver settings.  Every other problem type, sharding over several
+devices and restarts are not ported.
 
 The host loop only calls step functions, reads the convergence flag they
 return, refines the time step on divergence and calls the callbacks; the
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+
+import numpy as np
 
 from fourc_tpu_torch.io import deck as deck_mod
 from fourc_tpu_torch.physics.newton import NewtonParams
@@ -117,6 +120,94 @@ def time_loop(
             f"[{fieldname}] {agg['steps']} steps ({agg['substeps']} substeps), "
             f"{agg['newton_iters']} Newton its, {agg['lin_iters']} Krylov its, "
             f"{agg['walltime']:.3f}s wall"
+        )
+    return state, agg
+
+
+def time_loop_adaptive(
+    fieldname,
+    state,
+    make_step,  # dt -> step fn (state -> (state, stats))
+    dt0: float,
+    t_end: float,
+    error_fn,  # (state_old, state_new, dt) -> local error estimate
+    tol: float = 1e-4,
+    dtmin: float | None = None,
+    dtmax: float | None = None,
+    safety: float = 0.9,
+    order: int = 3,
+    callbacks=None,
+    timers: Timers | None = None,
+    verbose: bool = True,
+):
+    """Error-controlled adaptive time stepping (Zienkiewicz-Xie style), the
+    reference's controller: after each converged step the local error
+    estimate is compared with ``tol``; a step with err > tol is rejected
+    and retried with a smaller dt, and after an accepted step dt grows
+    toward dt * safety (tol / err)^(1/order).  dt is kept on the halving
+    grid dtmax / 2^j, as the reference keeps it (the decks' anchors were
+    written with it; 4C's TimAdaZienXie does not quantise).  Returns
+    (state, aggregate stats), with the accepted step sizes in order under
+    ``dt_history``."""
+    timers = timers or Timers()
+    dtmax = dtmax if dtmax is not None else dt0
+    dtmin = dtmin if dtmin is not None else dt0 / 64.0
+    step_fns = {}
+
+    def get_step(dt):
+        if dt not in step_fns:
+            with timers("make_step"):
+                step_fns[dt] = make_step(dt)
+        return step_fns[dt]
+
+    def quantize(dt):
+        j = int(np.ceil(np.log2(dtmax / max(dt, dtmin)) - 1e-12))
+        return dtmax / 2 ** max(0, j)
+
+    agg = {"newton_iters": 0, "lin_iters": 0, "steps": 0, "substeps": 0,
+           "resnorm": 0.0, "halvings": 0, "rejections": 0, "dt_levels": set(),
+           "dt_history": []}
+    t = float(state["t"])
+    dt = quantize(dt0)
+    t_wall = time.perf_counter()
+    while t < t_end - 1e-12 * max(1.0, abs(t_end)):
+        dt = min(dt, t_end - t)  # the final partial step may be off-grid
+        with timers("step"):
+            st_new, stats = get_step(dt)(state)
+        if not bool(stats["converged"]):
+            if dt / 2 < dtmin:
+                raise RuntimeError(f"{fieldname}: diverged at t={t:g} with "
+                                   f"dt=dtmin={dtmin:g}")
+            agg["halvings"] += 1
+            dt = quantize(dt / 2)
+            continue
+        err = float(error_fn(state, st_new, dt))
+        if err > tol and dt > dtmin * (1 + 1e-12):
+            agg["rejections"] += 1
+            dt = quantize(max(
+                dtmin, dt * max(0.25, safety * (tol / err) ** (1.0 / order))))
+            continue
+        state = st_new
+        t = float(state["t"])
+        agg["newton_iters"] += int(stats["iters"])
+        agg["lin_iters"] += int(stats["lin_iters"])
+        agg["substeps"] += 1
+        agg["steps"] += 1
+        agg["resnorm"] = float(stats["resnorm"])
+        agg["dt_levels"].add(dt)
+        agg["dt_history"].append(dt)
+        if callbacks:
+            for cb in callbacks:
+                cb(fieldname, state, agg)
+        fac = safety * (tol / max(err, 1e-300)) ** (1.0 / order)
+        dt = quantize(min(dtmax, dt * min(4.0, max(0.25, fac))))
+    agg["walltime"] = time.perf_counter() - t_wall
+    agg["dt_levels"] = sorted(agg["dt_levels"])
+    if verbose:
+        print(
+            f"[{fieldname}] adaptive: {agg['steps']} steps, "
+            f"{agg['rejections']} rejections, dt levels {agg['dt_levels']}, "
+            f"{agg['newton_iters']} Newton its, {agg['walltime']:.3f}s wall"
         )
     return state, agg
 

@@ -1,11 +1,13 @@
-"""Structural field: forces, mass, gen-alpha step.
+"""Structural field: forces, mass, preconditioners and the time steps.
 
 Counterpart of the subset of fourc_tpu/physics/solid.py that the ported
 problems run: hex8, tet4 and wedge6 blocks of any law with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper), nonlinear kinematics, consistent mass,
-Dirichlet and surface-traction conditions, gen-alpha in time with Newton
-and CG + multigrid or a direct solve.  Three kinds of mesh, found from the
-mesh itself:
+(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, consistent or
+lumped mass, Rayleigh damping under gen-alpha, Dirichlet and
+surface-traction conditions; statics, one-step-theta, gen-alpha and
+explicit central differences in time, the implicit ones with Newton and CG
+(preconditioned by multigrid, Jacobi or nodal-block Jacobi, or not at all)
+or a direct solve.  Three kinds of mesh, found from the mesh itself:
 
 - a uniform lattice: the operators are collapsed stencils (kernels B1-B3);
 - general geometry on lattice topology (arbitrary node positions, e.g. a
@@ -22,7 +24,9 @@ mesh itself:
   SVK runs the element-batch kernels (B6, B7); every other block the
   element route of ops/solid.py (plain PyTorch: the reference runs these
   blocks in XLA, not in a Pallas kernel), and a hex8 block of any law its
-  mass with B6.
+  mass with B6.  ``kinem`` linear takes general topology and the element
+  route for every block, as the reference's lattice and Pallas paths need
+  nonlinear kinematics.
 
 The kernels run on a CUDA device, their twins on the CPU.  State dicts from
 ``init_state``/``compute_initial_state`` hold flat dof vectors, as in the
@@ -46,7 +50,7 @@ from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.functions import FunctionManager
 from fourc_tpu_torch.core.mesh import Discretization
 from fourc_tpu_torch.linalg import solvers
-from fourc_tpu_torch.linalg.precond import jacobi
+from fourc_tpu_torch.linalg.precond import block_jacobi, jacobi
 from fourc_tpu_torch.materials.elastic import lame
 from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import lattice as _lat
@@ -81,20 +85,21 @@ class GenAlphaParams:
 
 @dataclass
 class SolidParams:
-    """Reference defaults.  The ported slices run kinem "nonlinear", tech
-    "none", dyntype "genalpha", precond "gmg" (or "amg" on general
-    topology) or the direct solver (``newton.lin_method``), consistent mass
-    and no Rayleigh damping; SolidField and make_step refuse anything
+    """Reference defaults.  The ported slices run tech "none", precond one
+    of PRECONDS (or the direct solver, ``newton.lin_method``), Rayleigh
+    damping under gen-alpha only and its stiffness part (``rayleigh_beta``)
+    on a uniform lattice only; SolidField and make_step refuse anything
     else."""
 
     kinem: str = "nonlinear"
     tech: str = "none"
     dyntype: str = "statics"
     dt: float = 1.0
+    theta: float = 0.5  # one-step-theta
     genalpha: GenAlphaParams = field(default_factory=GenAlphaParams)
     newton: NewtonParams = field(default_factory=NewtonParams)
     precond: str = "block_jacobi"
-    mass: str = "consistent"
+    mass: str = "consistent"  # or "lumped"
     rayleigh_alpha: float = 0.0
     rayleigh_beta: float = 0.0
     predictor: str = "constdis"
@@ -104,9 +109,10 @@ class SolidParams:
 class FieldBlock:
     """One element block of a field of general topology: its elements'
     coordinates X (nen*3, E) in the field's dtype, its law and, for a hex8
-    block whose law has a kernel model, the kernels B6/B7; any other block
-    takes the element route with its geometry G, wdet computed once
-    (ops/solid.py).  A hex8 block of any law computes its mass with B6."""
+    block whose law has a kernel model under nonlinear kinematics, the
+    kernels B6/B7; any other block takes the element route with its
+    geometry G, wdet computed once (ops/solid.py).  A hex8 block of any law
+    computes its mass with B6."""
 
     key: str
     cell: object  # CellType
@@ -119,11 +125,13 @@ class FieldBlock:
     G: torch.Tensor | None = None
     wdet: torch.Tensor | None = None
     N: torch.Tensor | None = None
+    kinem: str = "nonlinear"
 
     def force(self, ue):
         if self.model is not None:
             return sk.hex8_force(self.X, ue, self.lam, self.mu, self.model)
-        return ops.element_force(self.G, self.wdet, ue, self.material)
+        return ops.element_force(self.G, self.wdet, ue, self.material,
+                                 kinem=self.kinem)
 
     def tangent(self, ue, ve, mcoef):
         """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass)."""
@@ -132,7 +140,20 @@ class FieldBlock:
             return sk.hex8_tangent(self.X, ue, ve, self.lam, self.mu,
                                    self.model, c)
         return ops.element_tangent(self.G, self.wdet, ue, ve, self.material,
-                                   c, self.N)
+                                   c, self.N, kinem=self.kinem)
+
+    def diag_blocks(self, ue):
+        """The 3x3 nodal diagonal blocks of every element's tangent at ue,
+        (nen, 3, 3, E), from its 3*nen unit probes: one tangent pass each
+        (B7 on a block of a kernel law)."""
+        nd, E = ue.shape
+        out = ue.new_empty((nd // 3, 3, 3, E))
+        for k in range(nd):
+            probe = torch.zeros_like(ue)
+            probe[k] = 1.0
+            a, j = divmod(k, 3)
+            out[a, :, j] = self.tangent(ue, probe, 0.0)[3 * a:3 * a + 3]
+        return out
 
     def mass(self, ve):
         if self.cell.name == "hex8":  # B6 in its mass-only mode
@@ -162,11 +183,12 @@ def unsupported_blocks(disc: Discretization, block_mat: dict) -> list:
     return out
 
 
-def takes_lattice_path(disc: Discretization, block_mat: dict) -> bool:
+def takes_lattice_path(disc: Discretization, block_mat: dict,
+                       kinem: str) -> bool:
     """A mesh of one hex8 block whose law has a kernel model keeps the
-    lattice paths when its connectivity is a lattice; every other mesh has
-    general topology."""
-    if len(disc.blocks) != 1:
+    lattice paths under nonlinear kinematics when its connectivity is a
+    lattice; every other mesh has general topology."""
+    if len(disc.blocks) != 1 or kinem != "nonlinear":
         return False
     key, blk = next(iter(disc.blocks.items()))
     return (blk.cell == "hex8"
@@ -195,7 +217,7 @@ class SolidField:
                 raise ValueError(f"block {key} mixes materials")
             self.block_mat[key] = materials[mid]
         self._check_supported()
-        lattice_path = takes_lattice_path(disc, self.block_mat)
+        lattice_path = takes_lattice_path(disc, self.block_mat, params.kinem)
         self.dofmap = disc.dofmap(self.ndpn, lattice=lattice_path)
         self.ndof = self.dofmap.ndof
         self.dbc = DirichletHandler(list(dirichlet), disc.coords, self.ndpn,
@@ -215,9 +237,17 @@ class SolidField:
             self._init_lattice()
         else:
             self.blocks = [self._field_block(key) for key in self.block_mat]
+        if params.rayleigh_beta and (self.lattice is None
+                                     or self.lattice.h is None):
+            raise NotImplementedError(
+                "not ported: k_damp (stiffness-proportional Rayleigh "
+                "damping) off the uniform lattice (it is ported for one hex8 "
+                "block of Neo-Hooke or SVK on a uniform lattice)")
+        self._mlump = None
         free = torch.as_tensor(self.dbc.free_mask, dtype=torch.float64)
         self.free = self.to_lattice(free.to(self.device)) > 0
         self._amg_cache = {}
+        self._probe_blocks = None
         self._neumann_data = []
         for nb in self.neumann:
             if nb.kind != "traction":
@@ -257,9 +287,10 @@ class SolidField:
         X = X.reshape(X.shape[0], -1).T.contiguous()  # (nen*3, E)
         blk = FieldBlock(key=key, cell=cell, material=mat,
                          density=float(mat.density or 0.0),
-                         X=X.to(self.dtype))
+                         X=X.to(self.dtype), kinem=self.params.kinem)
         model = _lat.material_model(mat)
-        if cell.name == "hex8" and model is not None:
+        if (cell.name == "hex8" and model is not None
+                and self.params.kinem == "nonlinear"):
             blk.model = model
             blk.lam, blk.mu = (float(x) for x in lame(mat.youngs, mat.nue))
         else:
@@ -271,20 +302,17 @@ class SolidField:
     def _check_supported(self):
         p = self.params
         out = unsupported_blocks(self.disc, self.block_mat)
-        if p.kinem != "nonlinear":
+        if p.kinem not in ("nonlinear", "linear"):
             out.append(f"kinem {p.kinem!r}")
         if p.tech != "none":
             out.append(f"tech {p.tech!r}")
-        if p.mass != "consistent":
+        if p.mass not in ("consistent", "lumped"):
             out.append(f"{p.mass} mass")
-        if p.rayleigh_alpha or p.rayleigh_beta:
-            out.append("Rayleigh damping")
         if out:
             raise NotImplementedError(
                 "not ported: " + "; ".join(out) + " (the ported solid field "
-                f"takes {', '.join(SOLID_CELLS)} blocks in 3D, kinem "
-                "'nonlinear', tech 'none', consistent mass, no Rayleigh "
-                "damping)")
+                f"takes {', '.join(SOLID_CELLS)} blocks in 3D, tech 'none', "
+                "consistent or lumped mass)")
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
@@ -318,8 +346,11 @@ class SolidField:
                             self.model)
 
     def tangent(self, u, v, mcoef=0.0):
-        """K(u) v + mcoef * M v, M the consistent mass (each block's
-        density included)."""
+        """K(u) v + mcoef * M v, M the field's mass (each block's density
+        included): consistent, in the same kernel pass, or lumped, added
+        elementwise after a pass without the mass."""
+        if mcoef and self.params.mass == "lumped":
+            return self.tangent(u, v) + mcoef * self.mlump * v
         if self.blocks:
             return self._assemble(
                 lambda b, ue, ve: b.tangent(ue, ve, mcoef), u, v)
@@ -330,7 +361,27 @@ class SolidField:
         return lk.neo_tangent(u, v, self.G, self.wdet, self.N, self.lam,
                               self.mu, self.model, c)
 
+    def force_hessian_at(self, u, w):
+        """v -> the derivative along v of K(u) w, D^2 f(u)[w, v]: the Newton
+        operator's term of stiffness-proportional Rayleigh damping, ported
+        for the uniform lattice (ops/lattice.py neo_force_hessian_at, plain
+        PyTorch on every device)."""
+        if self.lattice is None or self.lattice.h is None:
+            raise NotImplementedError(
+                "D^2 f (k_damp) is ported for the uniform lattice")
+        return _lat.neo_force_hessian_at(u, w, self.G, self.wdet, self.lam,
+                                         self.mu, self.model)
+
+    @property
+    def mlump(self):
+        """The lumped mass in the field's layout, computed once."""
+        if self._mlump is None:
+            self._mlump = self.lumped_mass()
+        return self._mlump
+
     def mass_matvec(self, v):
+        if self.params.mass == "lumped":
+            return self.mlump * v
         if self.blocks:
             return self._assemble(FieldBlock.mass, v)
         if self.x is not None:  # B4 in its mass-only mode
@@ -459,6 +510,43 @@ class SolidField:
             self._amg_cache[shift] = M
         return self._amg_cache[shift]
 
+    def build_preconditioner(self, u, mass_shift=0.0):
+        """Jacobi or nodal-block Jacobi (``params.precond``) from the 3x3
+        nodal diagonal blocks of the element tangents at u (in the field's
+        layout) plus ``mass_shift`` times the lumped mass; constrained
+        dofs get identity rows and columns.  A hex8 block of a kernel law
+        takes its blocks from B7 on the element batch, lattice or not (24
+        launches); every other block from the element route."""
+        if self._probe_blocks is None:
+            blocks = self.blocks or [self._field_block(self.key)]
+            self._probe_blocks = [
+                (b, torch.as_tensor(self.disc.blocks[b.key].conn,
+                                    device=self.device).long())
+                for b in blocks]
+        un = self.from_lattice(u).reshape(-1, 3)
+        nn = un.shape[0]
+        blocks = un.new_zeros((nn, 3, 3))
+        for b, conn in self._probe_blocks:
+            ue = un[conn].reshape(conn.shape[0], -1).T.contiguous()
+            db = b.diag_blocks(ue)  # (nen, 3, 3, E)
+            blocks.index_add_(0, conn.T.reshape(-1),
+                              db.permute(0, 3, 1, 2).reshape(-1, 3, 3))
+        eye = torch.eye(3, dtype=torch.bool, device=self.device)
+        if mass_shift:
+            ml = self.from_lattice(self.mlump).reshape(-1, 3)[:, 0]
+            blocks = blocks + mass_shift * ml[:, None, None] * eye
+        free = torch.as_tensor(self.dbc.free_mask,
+                               device=self.device).reshape(nn, 3)
+        blocks = torch.where(free[:, :, None] & free[:, None, :], blocks, 0.0)
+        blocks = blocks + (~free[:, :, None] & eye).to(blocks.dtype)
+        if self.params.precond == "jacobi":
+            return jacobi(self.to_lattice(
+                torch.diagonal(blocks, dim1=1, dim2=2).reshape(-1)))
+        M = block_jacobi(blocks)
+        if self.lattice is None:
+            return M
+        return lambda r: self.to_lattice(M(self.from_lattice(r)))
+
 
 def init_state(f: SolidField):
     """Zero state, flat dof vectors."""
@@ -469,25 +557,57 @@ def init_state(f: SolidField):
 
 def compute_initial_state(f: SolidField, state, consistent_mass_tol=1e-10):
     """Forces and the acceleration consistent with (d, v, t):
-    M a0 = f_ext(0) - f_int(d0), solved with Jacobi-preconditioned CG."""
+    M a0 = f_ext(0) - f_int(d0), solved with Jacobi-preconditioned CG for
+    the consistent mass, divided by the lumped mass where it is positive,
+    and a0 = 0 under statics."""
     t0 = state["t"]
     d0 = f.dbc.apply(state["d"], t0)
     fint0 = f.internal_force(f.to_lattice(d0))
     fext0 = f.external_force(t0)
     rhs = torch.where(f.free, fext0 - fint0, 0.0)
+    if f.params.dyntype == "statics":
+        a0 = torch.zeros_like(rhs)
+    elif f.params.mass == "lumped":
+        ml = f.mlump
+        a0 = torch.where(ml > 0, rhs / torch.clamp(ml, min=1e-300), 0.0)
+    else:
+        def Mop(v):
+            vm = torch.where(f.free, v, 0.0)
+            return torch.where(f.free, f.mass_matvec(vm), v)
 
-    def Mop(v):
-        vm = torch.where(f.free, v, 0.0)
-        return torch.where(f.free, f.mass_matvec(vm), v)
-
-    res = solvers.cg(Mop, rhs, M=jacobi(torch.clamp(f.lumped_mass(),
-                                                    min=1e-300)),
-                     tol=consistent_mass_tol, maxiter=200)
-    a0 = torch.where(f.free, res.x, 0.0)
+        res = solvers.cg(Mop, rhs, M=jacobi(torch.clamp(f.mlump, min=1e-300)),
+                         tol=consistent_mass_tol, maxiter=200)
+        a0 = torch.where(f.free, res.x, 0.0)
     new = dict(state)
     new.update(d=d0, a=f.from_lattice(a0), fint=f.from_lattice(fint0),
                fext=f.from_lattice(fext0))
     return new
+
+
+def make_zienxie_error_fn(f: SolidField):
+    """Zienkiewicz-Xie local error estimate of a Newmark-family step: the
+    RMS over the dofs of e = |beta - 1/6| dt^2 (a_{n+1} - a_n), with
+    beta = theta / 2 for one-step-theta (the reference's)."""
+    typ = f.params.dyntype
+    if typ == "genalpha":
+        beta = float(f.params.genalpha.beta)
+    elif typ == "onesteptheta":
+        beta = float(f.params.theta) / 2.0
+    else:
+        raise ValueError(
+            f"Zienkiewicz-Xie adaptivity needs a dynamic Newmark-family "
+            f"integrator (genalpha/onesteptheta), got dyntype={typ!r}")
+    coef = abs(beta - 1.0 / 6.0)
+
+    def flat(a):  # a lattice field's states after the first step
+        return a if a.dim() == 1 else f.from_lattice(a)
+
+    def error_fn(state_old, state_new, dt):
+        da = flat(state_new["a"]) - flat(state_old["a"])
+        return (coef * dt * dt * float(torch.linalg.vector_norm(da))
+                / f.ndof ** 0.5)
+
+    return error_fn
 
 
 def _predict(kind: str, dt, d_n, v_n, a_n):
@@ -507,31 +627,67 @@ def _newmark_updates(dt, d_new, d_n, v_n, a_n, beta, gamma):
     return v_new, a_new
 
 
+DYNTYPES = ("statics", "onesteptheta", "genalpha", "explicit")
+PRECONDS = ("none", "jacobi", "block_jacobi", "gmg", "amg")
+
+
 def make_step(f: SolidField, dt: float | None = None):
     """Build ``step(state) -> (state, stats)`` for the configured
-    integrator (gen-alpha with a multigrid preconditioner, or with a direct
-    solve and no preconditioner, on the ported slices)."""
+    integrator: statics, one-step-theta or gen-alpha with Newton (CG with a
+    preconditioner of PRECONDS, or the direct solve), or explicit central
+    differences."""
+    from fourc_tpu_torch.physics import solid_lattice as sl
+
     dt = float(dt if dt is not None else f.params.dt)
-    if f.params.dyntype != "genalpha":
+    p = f.params
+    if p.dyntype not in DYNTYPES:
         raise NotImplementedError(
-            f"DYNAMICTYPE {f.params.dyntype!r} is not ported (genalpha is)")
-    if f.params.newton.lin_method not in ("cg", "direct"):
+            f"DYNAMICTYPE {p.dyntype!r} is not ported ({', '.join(DYNTYPES)} "
+            f"are)")
+    if (p.rayleigh_alpha or p.rayleigh_beta) and p.dyntype != "genalpha":
         raise NotImplementedError(
-            f"linear solver {f.params.newton.lin_method!r} is not ported "
+            f"Rayleigh damping under DYNAMICTYPE {p.dyntype!r} is not ported "
+            f"(genalpha carries it; the reference's statics, one-step-theta "
+            f"and central-difference steps drop it)")
+    if p.dyntype == "explicit":
+        return sl.make_explicit_step(f, dt)
+    if p.newton.lin_method not in ("cg", "direct"):
+        raise NotImplementedError(
+            f"linear solver {p.newton.lin_method!r} is not ported "
             f"(cg and direct are)")
-    if (f.params.newton.lin_method == "cg"
-            and f.params.precond not in ("gmg", "amg")):
+    if p.newton.lin_method == "cg" and p.precond not in PRECONDS:
         raise NotImplementedError(
-            f"precond {f.params.precond!r} is not ported (gmg and amg are)")
-    return _make_genalpha_step(f, dt)
+            f"precond {p.precond!r} is not ported ({', '.join(PRECONDS)} "
+            f"are)")
+    if p.dyntype == "statics":
+        shift, build = 0.0, sl.make_statics_step
+    elif p.dyntype == "onesteptheta":
+        shift, build = 1.0 / (p.theta * dt * dt), sl.make_ost_step
+    else:
+        ga = p.genalpha
+        shift = (1 - ga.alpha_m) / (ga.beta * dt * dt)
+        build = sl.make_lattice_genalpha_step
+    M = _static_precond(f, mass_shift=shift)
+    if (M is None and p.newton.lin_method == "cg"
+            and p.precond in ("jacobi", "block_jacobi")):
+        def precond_at(u0):
+            return f.build_preconditioner(u0, mass_shift=shift)
+    else:
+        def precond_at(u0):
+            return M
+    step = build(f, dt, precond_at)
+    step.precond = M  # for reports: the hierarchy and its setup times
+    return step
 
 
 def _static_precond(f: SolidField, mass_shift: float = 0.0):
     """The state-independent preconditioner, built once per step function:
-    GMG on a lattice, SA-AMG on general topology, none for the direct
+    GMG on a lattice, SA-AMG on general topology; None for the direct
     solve (the reference builds a block-Jacobi there that the direct solve
-    never reads)."""
-    if f.params.newton.lin_method == "direct":
+    never reads), for no preconditioner and for the per-state Jacobi and
+    block-Jacobi."""
+    if (f.params.newton.lin_method == "direct"
+            or f.params.precond not in ("gmg", "amg")):
         return None
     if f.params.precond == "amg":
         return f._build_amg(mass_shift)
@@ -543,14 +699,4 @@ def _static_precond(f: SolidField, mass_shift: float = 0.0):
         return f._build_amg(mass_shift)
     from fourc_tpu_torch.linalg import gmg
 
-    return gmg.build_for_solid(f, mass_shift=mass_shift, device=f.device)
-
-
-def _make_genalpha_step(f: SolidField, dt: float):
-    from fourc_tpu_torch.physics import solid_lattice
-
-    ga = f.params.genalpha
-    M = _static_precond(f, mass_shift=(1 - ga.alpha_m) / (ga.beta * dt * dt))
-    step = solid_lattice.make_lattice_genalpha_step(f, dt, M)
-    step.precond = M  # for reports: the hierarchy and its setup times
-    return step
+    return gmg.build_for_solid(f, mass_shift=mass_shift)

@@ -1,21 +1,23 @@
-"""Gen-alpha step with the whole Newton-Krylov loop in the field's layout.
+"""The time steps, with the whole Newton-Krylov loop in the field's layout.
 
 Counterpart of fourc_tpu/physics/solid_lattice.py and of the flat
-``_make_genalpha_step`` of fourc_tpu/physics/solid.py (without contact,
-ties, Rayleigh damping and history), for every kind of field: a uniform
-lattice (kernels B1-B3), general geometry on lattice topology (B4, B5) and
-general topology (B6, B7); the step only calls the field's operators.  On a
-lattice, state vectors, residuals, Krylov vectors and the GMG hierarchy all
-stay in the padded lattice layout (ops/lattice.py); the flat dof state is
-converted once, on the first step.  On general topology the field's layout
-functions are the identity and everything stays flat.
+``_make_genalpha_step``, ``_make_statics_step``, ``_make_ost_step`` and
+``_make_central_diff_step`` of fourc_tpu/physics/solid.py (without contact,
+ties and history), for every kind of field: a uniform lattice (kernels
+B1-B3), general geometry on lattice topology (B4, B5) and general topology
+(B6, B7 and the element route); the steps only call the field's operators.
+On a lattice, state vectors, residuals, Krylov vectors and the GMG
+hierarchy all stay in the padded lattice layout (ops/lattice.py); the flat
+dof state is converted once, on the first step.  On general topology the
+field's layout functions are the identity and everything stays flat.
 
-The Newton operator is the fused tangent of the residual,
-``(1 - af) * (K(u) v + mcoef * M v)`` with
-``mcoef = (1 - am) / ((1 - af) beta dt^2)`` and M the consistent mass with
-each block's density: one tangent-kernel pass per Krylov iteration (the
-reference takes ``jax.jvp`` of the residual, which on general geometry runs
-the tangent and the mass kernels; the sum is the same).
+The Newton operators are the exact tangents of the residuals, which the
+reference takes by ``jax.jvp``: each is one pass of the field's fused
+tangent ``K(u) v + mcoef * M v`` (the consistent mass in the same kernel
+pass, the lumped mass added elementwise), plus, under stiffness-proportional
+Rayleigh damping, the second derivative of the internal force.
+``precond_at(u0)`` gives each step's preconditioner at its predictor: the
+static multigrid, the per-state Jacobi or block-Jacobi, or None.
 """
 
 from __future__ import annotations
@@ -49,34 +51,77 @@ def from_lattice_state(f, state):
     return new
 
 
-def make_lattice_genalpha_step(f, dt: float, precond):
+def _step_start(f, state, dt):
+    """The state in the field's layout, t_{n+1}, f_ext(t_{n+1}) and the
+    prescribed values at t_{n+1} (loads and prescribed values do not
+    depend on d: once per step)."""
+    state = to_lattice_state(f, state)
+    t1 = state["t"] + dt
+    gw = f.to_lattice(torch.as_tensor(f.dbc.values(t1), dtype=f.dtype,
+                                      device=f.device))
+    return state, t1, f.external_force(t1), gw
+
+
+def genalpha_system(f, dt: float, state, fext1):
+    """The gen-alpha residual of one step from ``state`` (in the field's
+    layout, external force f_ext(t_{n+1}) = fext1) and its Newton operator,
+    with Rayleigh damping ``ra * M v_mid + rb * K(d) v_mid``,
+    v_mid = (1 - af) v_{n+1} + af v_n.  With c = gamma / (beta dt) the
+    operator is (1 - af)(1 + rb c) K(d) + ((1 - am) / (beta dt^2)
+    + ra (1 - af) c) M + rb D^2f(d)[v_mid, .]: one fused tangent pass, plus
+    D^2f when rb != 0."""
     ga = f.params.genalpha
     am, af, beta, gamma = ga.alpha_m, ga.alpha_f, ga.beta, ga.gamma
-    mcoef = (1 - am) / ((1 - af) * beta * dt * dt)
+    ra, rb = f.params.rayleigh_alpha, f.params.rayleigh_beta
+    c = gamma / (beta * dt)
+    kfac = (1 - af) * (1 + rb * c)
+    mcoef = ((1 - am) / (beta * dt * dt) + ra * (1 - af) * c) / kfac
+    d_n, v_n, a_n = state["d"], state["v"], state["a"]
+    fint_n = state["fint"]
+    fmid_ext = (1 - af) * fext1 + af * state["fext"]
+
+    def v_mid_of(d_new):
+        v_new, _ = _newmark_updates(dt, d_new, d_n, v_n, a_n, beta, gamma)
+        return (1 - af) * v_new + af * v_n
+
+    def residual(d_new):
+        v_new, a_new = _newmark_updates(dt, d_new, d_n, v_n, a_n, beta,
+                                        gamma)
+        a_mid = (1 - am) * a_new + am * a_n
+        fint_mid = (1 - af) * f.internal_force(d_new) + af * fint_n
+        v_mid = (1 - af) * v_new + af * v_n
+        if ra:
+            a_mid = a_mid + ra * v_mid
+        r = f.mass_matvec(a_mid) + fint_mid - fmid_ext
+        if rb:
+            r = r + rb * f.tangent(d_new, v_mid)
+        return r
+
+    hessian = {}  # D^2f(u)[v_mid(u), .], set up once per Newton iterate
 
     def matvec_fn(u, v):
-        return (1 - af) * f.tangent(u, v, mcoef)
+        out = kfac * f.tangent(u, v, mcoef)
+        if rb:
+            if hessian.get("u") is not u:
+                hessian.update(u=u, apply=f.force_hessian_at(u, v_mid_of(u)))
+            out = out + rb * hessian["apply"](v)
+        return out
+
+    return residual, matvec_fn
+
+
+def make_lattice_genalpha_step(f, dt: float, precond_at):
+    """Gen-alpha (``genalpha_system``), in the field's layout."""
+    ga = f.params.genalpha
+    beta, gamma = ga.beta, ga.gamma
 
     def step(state):
-        state = to_lattice_state(f, state)
-        t1 = state["t"] + dt
+        state, t1, fext1, gw = _step_start(f, state, dt)
         d_n, v_n, a_n = state["d"], state["v"], state["a"]
-        fint_n = state["fint"]
-        # loads and prescribed values do not depend on d: once per step
-        fext1 = f.external_force(t1)
-        gw = f.to_lattice(torch.as_tensor(f.dbc.values(t1), dtype=f.dtype,
-                                          device=f.device))
-        fmid_ext = (1 - af) * fext1 + af * state["fext"]
-
-        def residual(d_new):
-            _, a_new = _newmark_updates(dt, d_new, d_n, v_n, a_n, beta, gamma)
-            a_mid = (1 - am) * a_new + am * a_n
-            fint_mid = (1 - af) * f.internal_force(d_new) + af * fint_n
-            return f.mass_matvec(a_mid) + fint_mid - fmid_ext
-
+        residual, matvec_fn = genalpha_system(f, dt, state, fext1)
         u0 = torch.where(f.free, _predict(f.params.predictor, dt, d_n, v_n,
                                           a_n), gw)
-        u, stats = newton_solve(residual, u0, f.free, precond,
+        u, stats = newton_solve(residual, u0, f.free, precond_at(u0),
                                 f.params.newton, matvec_fn)
         v1, a1 = _newmark_updates(dt, u, d_n, v_n, a_n, beta, gamma)
         new_state = dict(state)
@@ -84,4 +129,82 @@ def make_lattice_genalpha_step(f, dt: float, precond):
                          fint=f.internal_force(u), fext=fext1)
         return new_state, stats
 
+    return step
+
+
+def make_statics_step(f, dt: float, precond_at):
+    """Statics: f_int(d) = f_ext(t_{n+1}) from the predictor d_n with the
+    prescribed values at t_{n+1}; the Newton operator is K(d)."""
+
+    def step(state):
+        state, t1, fext1, gw = _step_start(f, state, dt)
+        u0 = torch.where(f.free, state["d"], gw)
+        u, stats = newton_solve(lambda d: f.internal_force(d) - fext1, u0,
+                                f.free, precond_at(u0), f.params.newton,
+                                f.tangent)
+        new_state = dict(state)
+        new_state.update(d=u, t=t1, step=state["step"] + 1,
+                         fint=f.internal_force(u), fext=fext1)
+        return new_state, stats
+
+    return step
+
+
+def make_ost_step(f, dt: float, precond_at):
+    """One-step-theta: M a_mid + th f_int(d) + (1 - th) f_int,n
+    = th f_ext,n+1 + (1 - th) f_ext,n with v_{n+1} = (d - d_n) / (th dt)
+    - (1 - th) / th v_n and a_mid = (v_{n+1} - v_n) / dt; the Newton
+    operator is th (K(d) + M / (th^2 dt^2))."""
+    th = f.params.theta
+    mcoef = 1.0 / (th * th * dt * dt)
+
+    def step(state):
+        state, t1, fext1, gw = _step_start(f, state, dt)
+        d_n, v_n, a_n = state["d"], state["v"], state["a"]
+        rest = (1 - th) * state["fint"] - (th * fext1
+                                           + (1 - th) * state["fext"])
+
+        def v_of(d_new):
+            return (d_new - d_n) / (th * dt) - (1 - th) / th * v_n
+
+        def residual(d_new):
+            a_mid = (v_of(d_new) - v_n) / dt  # th a_{n+1} + (1 - th) a_n
+            return (f.mass_matvec(a_mid) + th * f.internal_force(d_new)
+                    + rest)
+
+        u0 = torch.where(f.free, _predict(f.params.predictor, dt, d_n, v_n,
+                                          a_n), gw)
+        u, stats = newton_solve(residual, u0, f.free, precond_at(u0),
+                                f.params.newton,
+                                lambda u, v: th * f.tangent(u, v, mcoef))
+        v1 = v_of(u)
+        a1 = (v1 - v_n) / (th * dt) - (1 - th) / th * a_n
+        new_state = dict(state)
+        new_state.update(d=u, v=v1, a=a1, t=t1, step=state["step"] + 1,
+                         fint=f.internal_force(u), fext=fext1)
+        return new_state, stats
+
+    return step
+
+
+def make_explicit_step(f, dt: float):
+    """Explicit central differences with the lumped mass, whatever the
+    field's mass setting (the reference's): one internal force per step,
+    no solve; the stats report a converged step of 0 iterations."""
+    ml = f.mlump
+    minv = torch.where(ml > 0, 1.0 / torch.clamp(ml, min=1e-300), 0.0)
+
+    def step(state):
+        state, t1, fext1, gw = _step_start(f, state, dt)
+        v_half = state["v"] + 0.5 * dt * state["a"]
+        d1 = torch.where(f.free, state["d"] + dt * v_half, gw)
+        fint = f.internal_force(d1)
+        a1 = torch.where(f.free, minv * (fext1 - fint), 0.0)
+        new_state = dict(state)
+        new_state.update(d=d1, v=v_half + 0.5 * dt * a1, a=a1, t=t1,
+                         step=state["step"] + 1, fint=fint, fext=fext1)
+        return new_state, {"iters": 0, "resnorm": 0.0, "dispnorm": 0.0,
+                           "lin_iters": 0, "converged": True}
+
+    step.precond = None
     return step

@@ -2,10 +2,13 @@
 
 Counterpart of fourc_tpu/physics/structure_driver.py for the solid field the
 port carries: hex8, tet4 and wedge6 blocks of laws with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper), nonlinear kinematics, gen-alpha with
-consistent mass, Newton with CG and a multigrid preconditioner (``gmg`` on
-a lattice, ``amg`` or ``gmg``'s SA-AMG fallback on general topology) or
-with the direct solver, Dirichlet conditions and surface tractions.
+(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, consistent or
+lumped mass, statics, one-step-theta, gen-alpha (with Rayleigh damping) and
+explicit central differences, Newton with CG and a preconditioner
+(``gmg`` on a lattice, ``amg`` or ``gmg``'s SA-AMG fallback on general
+topology, ``jacobi``, ``block_jacobi`` or ``none``) or with the direct
+solver, Zienkiewicz-Xie adaptive time steps, Dirichlet conditions and
+surface tractions.
 ``check_supported`` names every setting of a deck that the reference
 honours and the port does not carry, before anything is built; the deck
 keys that the reference ignores for a structure problem stay ignored.
@@ -18,6 +21,7 @@ import torch
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.mesh import _detect_structured
 from fourc_tpu_torch.materials import make_material
+from fourc_tpu_torch.ops.lattice import detect_lattice
 from fourc_tpu_torch.physics import driver as drv
 from fourc_tpu_torch.physics import solid as ps
 from fourc_tpu_torch.physics.solid_lattice import from_lattice_state
@@ -32,6 +36,7 @@ def solid_params_from(deck) -> ps.SolidParams:
         tech=dyn["tech"],
         dyntype=dyn["dynamictype"],
         dt=dyn["timestep"],
+        theta=dyn["theta"],
         genalpha=ps.GenAlphaParams(rho_inf=dyn["rho_inf"]),
         newton=drv.newton_params_from(dyn, solver),
         precond=solver["precond"],
@@ -55,26 +60,25 @@ def check_supported(deck, disc_name="structure"):
         out.append(f"problem.nshard {prob['nshard']} (one card)")
     if prob["restart"]:
         out.append("problem.restart")
-    if dyn["dynamictype"] != "genalpha":
-        out.append(f"dynamictype {dyn['dynamictype']!r} (genalpha is ported)")
-    if dyn["kinem"] != "nonlinear":
-        out.append(f"kinem {dyn['kinem']!r}")
+    if dyn["dynamictype"] not in ps.DYNTYPES:
+        out.append(f"dynamictype {dyn['dynamictype']!r}")
     if dyn["tech"] != "none":
         out.append(f"tech {dyn['tech']!r}")
-    for key in ("lumpmass", "m_damp", "k_damp"):
-        if dyn[key]:
-            out.append(f"{key} {dyn[key]!r}")
+    for key in ("m_damp", "k_damp"):
+        if dyn[key] and dyn["dynamictype"] != "genalpha":
+            out.append(f"{key} {dyn[key]!r} under dynamictype "
+                       f"{dyn['dynamictype']!r} (Rayleigh damping is ported "
+                       f"for genalpha)")
     if dyn["prestress"] != "none":
         out.append(f"prestress {dyn['prestress']!r}")
-    if dyn["timada_kind"] != "none":
-        out.append(f"timada_kind {dyn['timada_kind']!r}")
-    if solver["method"] not in ("cg", "direct"):
+    implicit = dyn["dynamictype"] != "explicit"
+    if implicit and solver["method"] not in ("cg", "direct"):
         out.append(f"solver.method {solver['method']!r} (cg and direct are "
                    f"ported)")
-    if solver["method"] != "direct" and solver["precond"] not in ("gmg",
-                                                                  "amg"):
-        out.append(f"solver.precond {solver['precond']!r} (gmg and amg are "
-                   f"ported)")
+    iterative = implicit and solver["method"] != "direct"
+    if iterative and solver["precond"] not in ps.PRECONDS:
+        out.append(f"solver.precond {solver['precond']!r} "
+                   f"({', '.join(ps.PRECONDS)} are ported)")
     for key in ("write_vtu", "write_ensight", "monitor", "restart_interval"):
         if io_cfg[key]:
             out.append(f"io.{key}")
@@ -96,21 +100,25 @@ def check_supported(deck, disc_name="structure"):
                      for key, blk in disc.blocks.items()
                      if int(blk.mat_id[0]) in mats}
         out += ps.unsupported_blocks(disc, block_mat)
-        multigrid = (solver["method"] != "direct"
-                     and solver["precond"] in ("gmg", "amg"))
+        multigrid = iterative and solver["precond"] in ("gmg", "amg")
         for key, m in block_mat.items():
             if multigrid and not hasattr(m, "youngs"):
                 out.append(f"element block {key!r}: material "
                            f"{type(m).__name__} under solver.precond "
                            f"{solver['precond']!r} (SA-AMG assembles a "
                            f"linear-elastic operator from youngs and nue)")
-        if (solver["method"] != "direct" and solver["precond"] == "amg"
-                and len(block_mat) == len(disc.blocks)
-                and ps.takes_lattice_path(disc, block_mat)
-                and _detect_structured(
-                    disc, next(iter(disc.blocks.values()))) is not None):
+        lattice = (len(block_mat) == len(disc.blocks)
+                   and ps.takes_lattice_path(disc, block_mat, dyn["kinem"])
+                   and _detect_structured(
+                       disc, next(iter(disc.blocks.values()))) is not None)
+        if iterative and solver["precond"] == "amg" and lattice:
             out.append("solver.precond 'amg' on a lattice mesh (SA-AMG is "
                        "ported for general topology; a lattice takes 'gmg')")
+        if dyn["k_damp"] and not (lattice and detect_lattice(disc)):
+            out.append(f"k_damp {dyn['k_damp']!r} off the uniform lattice "
+                       f"(stiffness-proportional Rayleigh damping is ported "
+                       f"for one hex8 block of Neo-Hooke or SVK on a uniform "
+                       f"lattice)")
     for nb in deck.conditions.get(disc_name, {}).get("neumann", ()):
         if nb.kind != "traction":
             out.append(f"neumann kind {nb.kind!r}")
@@ -149,12 +157,23 @@ def run(deck, callbacks=None, device="cuda") -> drv.RunResult:
     n_steps = dyn["numstep"]
     if dyn["maxtime"] is not None:
         n_steps = int(round(dyn["maxtime"] / dyn["timestep"]))
-    state, agg = drv.time_loop(
-        "structure", state, lambda dt: ps.make_step(f, dt), dyn["timestep"],
-        n_steps, divercont=dyn["divercont"],
-        max_levels=dyn["maxdivconrefinementlevel"],
-        callbacks=list(callbacks or []), timers=timers,
-    )
+    if dyn["timada_kind"] == "zienkiewicz_xie":
+        state, agg = drv.time_loop_adaptive(
+            "structure", state, lambda dt: ps.make_step(f, dt),
+            dyn["timestep"],
+            t_end=float(state["t"]) + n_steps * dyn["timestep"],
+            error_fn=ps.make_zienxie_error_fn(f), tol=dyn["timada_tol"],
+            dtmin=dyn["timada_dtmin"], dtmax=dyn["timada_dtmax"],
+            safety=dyn["timada_safety"], callbacks=list(callbacks or []),
+            timers=timers,
+        )
+    else:
+        state, agg = drv.time_loop(
+            "structure", state, lambda dt: ps.make_step(f, dt),
+            dyn["timestep"], n_steps, divercont=dyn["divercont"],
+            max_levels=dyn["maxdivconrefinementlevel"],
+            callbacks=list(callbacks or []), timers=timers,
+        )
     return drv.RunResult(
         deck=deck, fields={"structure": SolidFieldView(f)},
         states={"structure": state},

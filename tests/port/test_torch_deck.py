@@ -36,9 +36,14 @@ HEX8_DYNAMIC = os.path.join(ROOT, "decks", "ref_converted",
 WEDGE6_DYNAMIC = os.path.join(ROOT, "decks", "ref_converted",
                               "solid_ele_wedge6_standard_dynamic.yaml")
 TET4 = os.path.join(ROOT, "decks", "solid_tet4_unstructured.yaml")
+# the other integrators, lumped mass, Rayleigh damping, kinem linear,
+# block-Jacobi and Zienkiewicz-Xie adaptivity
+INTEGRATOR_DECKS = [os.path.join(ROOT, "decks", f"solid_{name}.yaml")
+                    for name in ("rayleigh_lumped_wide", "ost_vibration",
+                                 "explicit_wave", "timada_pulse")]
 # deck -> number of anchors
 GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
-              TET4: 6}
+              TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS}}
 
 
 def _structure_decks():
@@ -195,6 +200,46 @@ def test_unported_structure_deck_is_refused(path, monkeypatch):
     monkeypatch.setattr(structure_driver, "build_field", built)
     with pytest.raises(NotImplementedError, match="not ported"):
         driver.run(path, device="cpu")
+
+
+# a setting the port still refuses, set on a copy of a deck it runs:
+# (section, key, value, what the refusal names)
+UNPORTED_SETTINGS = {
+    "tech_fbar": ("structural_dynamic", "tech", "fbar", "tech 'fbar'"),
+    "tech_eas_mild": ("structural_dynamic", "tech", "eas_mild",
+                      "tech 'eas_mild'"),
+    "gmres": ("solver", "method", "gmres", "solver.method 'gmres'"),
+    "bicgstab": ("solver", "method", "bicgstab", "solver.method 'bicgstab'"),
+    "chebyshev": ("solver", "precond", "chebyshev",
+                  "solver.precond 'chebyshev'"),
+    "prestress": ("structural_dynamic", "prestress", "mulf",
+                  "prestress 'mulf'"),
+    "k_damp_jittered": ("geometry", "jitter", 0.3, "k_damp 0.002 off the "
+                        "uniform lattice"),
+    "m_damp_statics": ("structural_dynamic", "dynamictype", "statics",
+                       "m_damp 0.3 under dynamictype 'statics'"),
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED_SETTINGS))
+def test_unported_setting_is_refused_by_name(name, monkeypatch):
+    """The Rayleigh deck with one setting the port does not carry is
+    refused, naming it, before the field is built."""
+    section, key, value, named = UNPORTED_SETTINGS[name]
+    with open(INTEGRATOR_DECKS[0]) as fh:
+        data = yaml.safe_load(fh)
+    if section == "geometry":
+        data["geometry"]["generator"][key] = value
+    else:
+        data.setdefault(section, {})[key] = value
+
+    def built(*args, **kwargs):
+        raise AssertionError("the field was built before the refusal")
+
+    monkeypatch.setattr(structure_driver, "build_field", built)
+    with pytest.raises(NotImplementedError, match="not ported") as exc:
+        driver.run(data, device="cpu")
+    assert named in str(exc.value)
 
 
 @pytest.mark.parametrize("flag", [["--restart", "2"], ["--restart-from", "x"],

@@ -128,7 +128,7 @@ def box():
                 HEX8.dN, HEX8.gauss_weights, HEX8.N)),
             fj=fj, fp=fp, shift=shift, pshape=(N_STEP + 1,) * 3,
             Mj=jgmg.build_for_solid(fj, mass_shift=shift),
-            Mp=gmg.build_for_solid(fp, mass_shift=shift, device="cpu"),
+            Mp=gmg.build_for_solid(fp, mass_shift=shift),
             sj=jps.compute_initial_state(fj, jps.init_state(fj)),
             sp=ps.compute_initial_state(fp, ps.init_state(fp)))
 
@@ -383,8 +383,8 @@ def test_entry_points_default_to_cuda(box, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         _field(PORT, box.disc3)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        gmg.build_for_solid(box.fp)
+    # a hierarchy built for a field takes the field's device
+    assert gmg.build_for_solid(box.fp).levels[0].dinv.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         gmg.StructuredGMG(box.disc3, 3, np.ones(box.disc3.n_nodes * 3, bool),
                           1.0, 1.0)

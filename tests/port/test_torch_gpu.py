@@ -311,3 +311,89 @@ def test_element_route_on_the_card_matches_the_cpu(cuda, dtype, mname,
                        sops.element_tangent(G, wdet, u, v, mat, 137.5, N))
     for got, want in zip(out[cuda], out["cpu"]):
         assert _rel(got.cpu().double(), want) <= TOL[dtype]
+
+
+# slice 4c: D^2f (plain PyTorch on every device), block-Jacobi from B7's
+# probes and one step of each new integrator, on the card against the CPU
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("model", ["neohooke", "svk"])
+def test_force_hessian_on_the_card_matches_the_cpu(cuda, dtype, model):
+    lam, mu = lame(500.0, 0.3)
+    out = {}
+    for device, dt in ((cuda, dtype), ("cpu", torch.float64)):
+        spec, _, field, G, wdet, _ = _inputs(SHAPES[1], dt, device, 31)
+        u, w, dv = field(5e-2), field(1e-2), field(1e-2)
+        out[device] = lat.neo_force_hessian_at(u, w, G, wdet, lam, mu,
+                                               model)(dv)
+    assert _rel(out[cuda].cpu().double(), out["cpu"]) <= TOL[dtype]
+
+
+def _slice4c_field(device, **changes):
+    """A clamped 6 x 4 x 5 Neo-Hooke box under a sinusoidal shear traction,
+    float64, with ``changes`` to its SolidParams."""
+    from fourc_tpu_torch.core import conditions, functions, gridgen
+    from fourc_tpu_torch.materials import make_material
+    from fourc_tpu_torch.physics import solid as ps
+
+    disc = gridgen.box(6, 4, 5)
+    params = ps.SolidParams(dyntype="genalpha", precond="gmg",
+                            genalpha=ps.GenAlphaParams(rho_inf=0.9))
+    params.newton.tol_res = 1e-9
+    for key, val in changes.items():
+        setattr(params, key, val)
+    fm = functions.FunctionManager()
+    fm.add(1, "sin(50.0*t)")
+    mat = make_material({"type": "neohooke", "youngs": 1.0e4, "nue": 0.3,
+                         "density": 1.0})
+    return ps.SolidField(
+        disc, {1: mat}, params,
+        dirichlet=[conditions.DirichletBC(disc.node_sets["zmin"], [1, 1, 1],
+                                          [0, 0, 0])],
+        neumann=[conditions.NeumannBC(disc.face_sets["zmax"], [1, 0, 0],
+                                      [400.0, 0, 0], funct=[1, 0, 0])],
+        functions=fm, device=device, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("kind", ["jacobi", "block_jacobi"])
+def test_block_jacobi_from_b7_probes_matches_the_cpu(cuda, kind):
+    out = {}
+    rng = np.random.default_rng(41)
+    ndof = 7 * 5 * 6 * 3
+    u_np, r_np = rng.normal(size=ndof) * 0.05, rng.normal(size=ndof)
+    for device in (cuda, "cpu"):
+        f = _slice4c_field(device, precond=kind)
+        u, r = (f.to_lattice(torch.as_tensor(x, device=device))
+                for x in (u_np, r_np))
+        sk.reset_launches()
+        out[device] = f.build_preconditioner(u, 250.0)(r)
+        if device == cuda:
+            assert sk.launches["tangent"] == 24
+    assert _rel(out[cuda].cpu(), out["cpu"]) <= TOL[torch.float64]
+
+
+@pytest.mark.parametrize("case", ["statics", "onesteptheta", "explicit",
+                                  "rayleigh_lumped", "block_jacobi"])
+def test_slice4c_step_on_the_card_matches_the_cpu(cuda, case):
+    from fourc_tpu_torch.physics import solid as ps
+
+    changes = {"statics": {"dyntype": "statics"},
+               "onesteptheta": {"dyntype": "onesteptheta", "theta": 0.66},
+               "explicit": {"dyntype": "explicit", "mass": "lumped"},
+               "rayleigh_lumped": {"rayleigh_alpha": 0.3,
+                                   "rayleigh_beta": 0.002,
+                                   "mass": "lumped"},
+               "block_jacobi": {"precond": "block_jacobi"}}[case]
+    dt = 1e-4 if case == "explicit" else 0.02
+    out = {}
+    for device in (cuda, "cpu"):
+        f = _slice4c_field(device, **changes)
+        state = ps.compute_initial_state(f, ps.init_state(f))
+        step = ps.make_step(f, dt=dt)
+        for _ in range(2):
+            state, stats = step(state)
+            assert stats["converged"]
+        out[device] = state
+    for k in ("d",) if case == "statics" else ("d", "v", "a"):  # v = a = 0
+        assert _rel(out[cuda][k].cpu(), out["cpu"][k]) <= TOL[torch.float64]

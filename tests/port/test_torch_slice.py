@@ -85,7 +85,7 @@ def flagship():
         yield types.SimpleNamespace(
             fj=fj, fp=fp, shift=shift, pshape=(N + 1,) * 3,
             Mj=jgmg.build_for_solid(fj, mass_shift=shift),
-            Mp=gmg.build_for_solid(fp, mass_shift=shift, device="cpu"),
+            Mp=gmg.build_for_solid(fp, mass_shift=shift),
             sj=jps.compute_initial_state(fj, jps.init_state(fj)),
             sp=ps.compute_initial_state(fp, ps.init_state(fp)))
 
@@ -191,21 +191,31 @@ def test_step_matches_reference(flagship):
                                   convert.flat_from_lattice(sp["d"].numpy()))
 
 
-@pytest.mark.parametrize("change", ["lumped", "rayleigh", "statics",
-                                    "block_jacobi", "non_hex8"])
+@pytest.mark.parametrize("change", ["k_damp_jittered", "k_damp_linear",
+                                    "rayleigh_statics", "rayleigh_ost",
+                                    "chebyshev", "gmres", "fbar",
+                                    "non_hex8"])
 def test_unported_configurations_refuse(change):
     disc = gridgen.box(2, 2, 2)
     params = ps.SolidParams(dyntype="genalpha", precond="gmg")
     if change == "non_hex8":  # a tet4 block must not be read as hex8
         disc.blocks["hex8"].cell = "tet4"
-    elif change == "lumped":
-        params.mass = "lumped"
-    elif change == "rayleigh":
+    elif change == "k_damp_jittered":  # general geometry on the lattice
+        disc.coords = disc.coords + np.random.default_rng(0).uniform(
+            -0.05, 0.05, disc.coords.shape) * (disc.coords % 1.0 > 0)
+        params.rayleigh_beta = 0.01
+    elif change == "k_damp_linear":  # kinem linear: general topology
+        params.kinem, params.rayleigh_beta = "linear", 0.01
+    elif change.startswith("rayleigh_"):
         params.rayleigh_alpha = 0.1
-    elif change == "statics":
-        params.dyntype = "statics"
+        params.dyntype = {"rayleigh_statics": "statics",
+                          "rayleigh_ost": "onesteptheta"}[change]
+    elif change == "chebyshev":
+        params.precond = "chebyshev"
+    elif change == "gmres":
+        params.newton.lin_method = "gmres"
     else:
-        params.precond = "block_jacobi"
+        params.tech = "fbar"
     with pytest.raises(NotImplementedError):
         f = ps.SolidField(disc, {1: make_material(dict(MAT))}, params,
                           device="cpu")

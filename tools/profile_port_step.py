@@ -7,12 +7,17 @@ Usage, from the repository root on a machine with a CUDA device:
 Builds the flagship problem of chip_smoke.py on one of its meshes,
 flagship, jittered, permuted or tet4 (default n=72, float32, flagship; the
 permuted box's full size is n=56; ``tet4`` is the permuted box split into
-6 tet4 per hex, chip_smoke.py phase 9 (c)), runs two warm-up steps, then
-traces ``steps`` steps (default 2) with torch.profiler.  Prints the
-device-time table by kernel, the device busy share (summed
-kernel time over the host wall time of the traced steps) and the host time
-per CG iteration.
+6 tet4 per hex, chip_smoke.py phase 9 (c); ``explicit`` is the flagship
+box under explicit central differences, chip_smoke.py phase 10 (d)), runs
+two warm-up steps, then traces ``steps`` steps (default 2) with
+torch.profiler.  Prints the device-time table by kernel, the device busy
+share (summed kernel time over the host wall time of the traced steps) and
+the host time per CG iteration; then runs ``steps`` more steps under
+cProfile and prints the host functions that took the most time.
 """
+
+import cProfile
+import pstats
 
 import os
 import sys
@@ -38,11 +43,16 @@ def main():
     mesh = sys.argv[3] if len(sys.argv) > 3 else "flagship"
     meshes = {**{m: (m, "hex8") for m in cs.FULL_N},
               "tet4": ("permuted", "tet4")}
-    if mesh not in meshes:
-        raise ValueError(f"mesh must be one of {list(meshes)}, not {mesh!r}")
-    f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
+    if mesh == "explicit":
+        f, step, _, dt = cs.explicit_problem(n)
+        print(f"explicit n={n}: dt {dt:.4e}")
+    elif mesh in meshes:
+        f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
+        step = cs.make_step(f, mesh)
+    else:
+        raise ValueError(f"mesh must be one of {list(meshes) + ['explicit']}"
+                         f", not {mesh!r}")
     state = ps.compute_initial_state(f, ps.init_state(f))
-    step = cs.make_step(f, mesh)
     for _ in range(2):
         state, _ = step(state)
     torch.cuda.synchronize()
@@ -70,6 +80,13 @@ def main():
           f"{device_us / 1e3:.1f} ms, busy share "
           f"{device_us / 1e6 / wall:.3f}, {launches} device kernels, "
           f"{1e3 * wall / max(cg, 1):.2f} ms wall per CG iteration")
+    host = cProfile.Profile()
+    host.enable()
+    for _ in range(n_steps):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    host.disable()
+    pstats.Stats(host).sort_stats("tottime").print_stats(15)
 
 
 if __name__ == "__main__":
