@@ -145,5 +145,19 @@ def get_cell(name: str) -> CellType:
                    f"are)")
 
 
+_SHAPE_FNS = {"hex8": _n_hex8, "tet4": _n_tet4, "wedge6": _n_wedge6,
+              "quad4": _n_quad4}
+
+
+@functools.cache
+def origin_dN(name: str) -> np.ndarray:
+    """Parametric gradients (nen, dim) at xi = 0, the element centre that
+    F-bar and EAS read, by the reference's formula there: one central
+    difference of step 1e-7 (``eval_shape_deriv``), exact to about 1e-9,
+    not the Richardson-extrapolated tables."""
+    cell = get_cell(name)
+    return _num_jac(_SHAPE_FNS[cell.name], np.zeros(cell.dim), 1e-7)
+
+
 CELLS = ("hex8", "tet4", "wedge6", "quad4")  # the ported cell types
 SOLID_CELLS = ("hex8", "tet4", "wedge6")  # the ported 3D volume cells

@@ -46,6 +46,19 @@ class NeumannBC:
             self.funct = [0] * len(self.onoff)
 
 
+@dataclass
+class BodyForce:
+    """Volume load: per component VAL * FUNCT at the Gauss points, scaled
+    by the block's density (1 where the density is 0)."""
+
+    val: list
+    funct: list | None = None
+
+    def __post_init__(self):
+        if self.funct is None:
+            self.funct = [0] * len(self.val)
+
+
 class DirichletHandler:
     """A list of DirichletBCs as (free_mask, u_D(t)).  Later conditions
     override earlier ones on shared nodes."""

@@ -1,9 +1,10 @@
 """Symbolic space-time functions (deck FUNCT entries).
 
 Counterpart of fourc_tpu/core/functions.py: the same tokenizer and
-recursive-descent parser, evaluated with numpy on host floats and arrays.
-Loads and prescribed values depend on time, which the host knows, so the
-device never evaluates an expression.
+recursive-descent parser, evaluated with numpy on host floats and arrays
+(prescribed values and surface loads), or with torch on a tensor of
+coordinates on its device (body forces, whose Gauss points cover the whole
+mesh: ``FunctionOfSpaceTime.on_device``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import re
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 _TOKEN_RE = re.compile(
     r"\s*(?:(?P<num>\d+\.?\d*(?:[eE][+-]?\d+)?|\.\d+(?:[eE][+-]?\d+)?)"
@@ -156,7 +158,36 @@ _BINARY = {
 }
 
 
-def _eval(node, env):
+def _cmp(op):
+    """A comparison as 1.0 / 0.0 in its operands' dtype."""
+    def f(a, b):
+        if not (torch.is_tensor(a) or torch.is_tensor(b)):
+            return float(op(a, b))
+        return op(a, b).to(torch.result_type(a, b))
+
+    return f
+
+
+_TORCH_FUNCS = {
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "exp": torch.exp, "log": torch.log, "log10": torch.log10,
+    "sqrt": torch.sqrt, "abs": torch.abs, "fabs": torch.abs,
+    "heaviside": lambda x: (x > 0).to(x.dtype),
+    "atan2": torch.atan2, "pow": torch.pow,
+    "min": torch.minimum, "max": torch.maximum,
+}
+_TORCH_BINARY = {**_BINARY,
+                 "<": _cmp(lambda a, b: a < b),
+                 ">": _cmp(lambda a, b: a > b),
+                 "<=": _cmp(lambda a, b: a <= b),
+                 ">=": _cmp(lambda a, b: a >= b)}
+
+
+def _eval(node, env, funcs=_FUNCS, binary=_BINARY):
+    """Evaluate a parsed expression; with ``funcs``/``binary`` the torch
+    tables, every variable of ``env`` must be a tensor."""
     tag = node[0]
     if tag == "const":
         return node[1]
@@ -167,10 +198,16 @@ def _eval(node, env):
             raise ValueError(
                 f"unknown variable {node[1]!r} in expression") from None
     if tag == "neg":
-        return -_eval(node[1], env)
+        return -_eval(node[1], env, funcs, binary)
     if tag == "call":
-        return _FUNCS[node[1]](*[_eval(a, env) for a in node[2]])
-    return _BINARY[tag](_eval(node[1], env), _eval(node[2], env))
+        args = [_eval(a, env, funcs, binary) for a in node[2]]
+        if funcs is _TORCH_FUNCS:  # constant arguments as tensors
+            like = env["t"]
+            args = [a if torch.is_tensor(a) else like.new_tensor(a)
+                    for a in args]
+        return funcs[node[1]](*args)
+    return binary[tag](_eval(node[1], env, funcs, binary),
+                       _eval(node[2], env, funcs, binary))
 
 
 @dataclass
@@ -217,6 +254,17 @@ class FunctionOfSpaceTime:
             return ev(self.components[min(component,
                                           len(self.components) - 1)])
         return np.stack([ev(c) for c in self.components], axis=-1)
+
+    def on_device(self, coords: torch.Tensor, t, component=0):
+        """One component at a tensor of coordinates (..., 3), evaluated by
+        torch on their device in their dtype: (...)."""
+        env = {"x": coords[..., 0], "y": coords[..., 1],
+               "z": coords[..., 2], "t": coords.new_tensor(float(t))}
+        c = self.components[min(component, len(self.components) - 1)]
+        out = _eval(c.ast, env, _TORCH_FUNCS, _TORCH_BINARY)
+        if not torch.is_tensor(out):
+            out = coords.new_tensor(out)
+        return out.expand(coords.shape[:-1])
 
 
 class FunctionManager:

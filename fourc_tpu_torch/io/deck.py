@@ -7,8 +7,8 @@ structure problem (``problem``, ``structural_dynamic``, ``solver``, ``io``,
 ``materials``, ``functions``, ``geometry``, ``conditions``,
 ``result_description``, ``title``).  Geometry comes from the ``box``
 generator (with ``jitter`` and ``permute``) or from explicit ``nodes``,
-``elements``, ``node_sets`` and ``face_sets``; conditions are ``dirichlet``
-and ``neumann``.  Whatever else the reference reads (another field's
+``elements``, ``node_sets`` and ``face_sets``; conditions are ``dirichlet``,
+``neumann`` and ``body_force``.  Whatever else the reference reads (another field's
 section, another generator, ``exodus``, two generators of one mesh, another
 condition kind, a problem type other than structure) raises
 NotImplementedError naming it as not ported.
@@ -21,7 +21,7 @@ Deck layout (one YAML document):
   materials:          {id: {type: ..., params...}}           ("MATERIALS")
   functions:          {id: expr | [expr per component]}      ("FUNCT1..")
   geometry:           generator | explicit nodes/elements    ("NODE COORDS"/"STRUCTURE ELEMENTS")
-  conditions:         dirichlet/neumann                      ("DESIGN ... CONDITIONS")
+  conditions:         dirichlet/neumann/body_force           ("DESIGN ... CONDITIONS")
   result_description: list of nodal checks                   ("RESULT DESCRIPTION")
 """
 
@@ -33,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from fourc_tpu_torch.core import gridgen
-from fourc_tpu_torch.core.conditions import DirichletBC, NeumannBC
+from fourc_tpu_torch.core.conditions import BodyForce, DirichletBC, NeumannBC
 from fourc_tpu_torch.core.functions import FunctionManager
 from fourc_tpu_torch.core.mesh import Discretization, FaceBlock
 
@@ -269,7 +269,7 @@ UNPORTED_SECTIONS = (
 )
 UNPORTED_GENERATORS = ("line", "sheet", "kl_patch", "nurbs_patch", "rectangle")
 UNPORTED_CONDITIONS = (
-    "fsi_interface", "point_neumann", "ale_dirichlet", "body_force",
+    "fsi_interface", "point_neumann", "ale_dirichlet",
     "bts_surface_contact", "particle_wall", "windkessel_outflow", "meshtying",
     "beam_contact", "constraint", "periodic", "spring_dashpot",
     "embedded_mesh", "electrode_kinetics", "contact",
@@ -453,14 +453,15 @@ def _build_conditions(conds: dict, discs: dict) -> dict:
         for item in items:
             if key in UNPORTED_CONDITIONS:
                 raise NotImplementedError(
-                    f"conditions.{key} is not ported (dirichlet and neumann "
-                    f"are)")
-            if key not in ("dirichlet", "neumann"):
+                    f"conditions.{key} is not ported (dirichlet, neumann and "
+                    f"body_force are)")
+            if key not in ("dirichlet", "neumann", "body_force"):
                 raise ValueError(f"unknown condition kind {key!r}")
             item = dict(item)
             fieldname = item.pop("field", None) or next(iter(discs))
             disc = discs.get(fieldname) or next(iter(discs.values()))
-            f = out.setdefault(fieldname, {"dirichlet": [], "neumann": []})
+            f = out.setdefault(fieldname, {"dirichlet": [], "neumann": [],
+                                           "body_force": []})
             if key == "dirichlet":
                 f["dirichlet"].append(
                     DirichletBC(
@@ -468,6 +469,9 @@ def _build_conditions(conds: dict, discs: dict) -> dict:
                         onoff=item["onoff"], val=item["val"], funct=item.get("funct"),
                     )
                 )
+            elif key == "body_force":
+                f["body_force"].append(BodyForce(val=item["val"],
+                                                 funct=item.get("funct")))
             else:
                 f["neumann"].append(
                     NeumannBC(

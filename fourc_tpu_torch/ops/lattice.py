@@ -297,7 +297,7 @@ def neo_jvp_ref(u, v, G, wdet, lam, mu, model="neohooke", N=None, mcoef=0.0):
     """
     G, wdet = _as(G, u), _as(wdet, u)
     ue, ve = torch.stack(_corners(u)), torch.stack(_corners(v))
-    fe = torch.zeros_like(ue)
+    fe = torch.zeros_like(ve)  # v's (under vmap: batched probes)
     for g in range(G.shape[0]):
         H = torch.einsum("ai...,aj->ij...", ue, G[g])
         Hd = torch.einsum("ai...,aj->ij...", ve, G[g])
@@ -305,7 +305,7 @@ def neo_jvp_ref(u, v, G, wdet, lam, mu, model="neohooke", N=None, mcoef=0.0):
         fe += wdet[g] * torch.einsum("ij...,aj->ai...", Pd, G[g])
         if mcoef:
             fe += _mass_gp(ve, _as(N, u)[g], mcoef * wdet[g])
-    return _assemble(fe, u)
+    return _assemble(fe, v)
 
 
 def neo_force_hessian_at(u, w, G, wdet, lam, mu, model="neohooke"):

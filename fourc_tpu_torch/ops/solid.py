@@ -30,6 +30,14 @@ a, one column per element.
   (``element_geometry``) is computed once per mesh; the tangent
   propagates the kinematics by hand and the stress by forward-mode AD
   (``torch.func.jvp`` of ``pk2_from_E``).
+- ``tech_force`` and ``tech_tangent``: the element technologies F-bar and
+  EAS9 "mild" on the same batches (the reference's ``_internal_force_fbar``
+  and ``_internal_force_eas``, which it computes in XLA with no Pallas
+  kernel); their tangents are ``torch.func.jvp`` of the force, as the
+  reference takes ``jax.jvp``.
+- ``gp_stresses`` and ``extrapolate_to_nodes``: Cauchy stresses at the
+  Gauss points and their extrapolation to the element nodes, for the nodal
+  stresses of a result test.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import functools
 import numpy as np
 import torch
 
-from fourc_tpu_torch.core.cells import CellType, get_cell
+from fourc_tpu_torch.core.cells import CellType, get_cell, origin_dN
 from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import lattice as _lat
 
@@ -214,9 +222,14 @@ def _grad(ut, G):
 def _integrate(Q, G):
     """f[a, i] = sum_{j, g} Q[i, j, g] G[a, j, g]: Q (3, 3, g, E) (the
     weighted first Piola-Kirchhoff stress), G (nen, 3, g, E) ->
-    (nen, 3, E)."""
-    return torch.stack([(Q * G[a][None]).sum(dim=(1, 2))
-                        for a in range(G.shape[0])])
+    (nen, 3, E).  Summed term by term in a fixed order (j, then g), so that
+    every device rounds alike (a reduction kernel sums in its own order)."""
+    out = None
+    for j in range(3):
+        for g in range(G.shape[2]):
+            term = Q[None, :, j, g] * G[:, None, j, g]
+            out = term if out is None else out + term
+    return out
 
 
 def _mass(wdet, N, vt):
@@ -282,3 +295,185 @@ def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None,
     if mcoef:
         out = out + mcoef * _mass(wdet, N, vt)
     return out.reshape(nen * 3, E)
+
+
+# ---------------------------------------------------------------------------
+# element technologies: F-bar and EAS9 "mild"
+# ---------------------------------------------------------------------------
+
+TECHS = ("fbar", "eas_mild")
+N_EAS = 9  # enhanced strain parameters per element
+
+
+def origin_geometry(X, cell: CellType):
+    """Element batch coordinates X (nen*3, E) -> (G0 (nen, 3, E), J0inv
+    (3, 3, E), j0 (E,)): the physical gradients, inverse Jacobian and
+    Jacobian determinant at xi = 0 (``origin_dN``), the centre that F-bar
+    and EAS read."""
+    dN0 = torch.as_tensor(origin_dN(cell.name), dtype=X.dtype,
+                          device=X.device)
+    J0 = torch.einsum("aiE,aj->ijE", X.reshape(cell.nen, 3, -1), dN0)
+    j0 = gm.det3l(J0)
+    J0inv = gm.inv3l(J0, j0)
+    return torch.einsum("aj,jiE->aiE", dN0, J0inv), J0inv, j0
+
+
+def eas9_param_modes(cell: CellType) -> np.ndarray:
+    """The 9 parametric strain modes of EAS "mild" (Simo-Rifai), (9, 3, 3,
+    g): each normal strain linear in its own parametric coordinate, each
+    shear in its two coordinates (symmetric)."""
+    xi = np.asarray(cell.gauss_points)
+    M = np.zeros((N_EAS, 3, 3, xi.shape[0]))
+    for k in range(3):
+        M[k, k, k] = xi[:, k]
+    k = 3
+    for i, j in ((0, 1), (1, 2), (0, 2)):
+        for c in (i, j):
+            M[k, i, j] = M[k, j, i] = 0.5 * xi[:, c]
+            k += 1
+    return M
+
+
+def eas_modes(X, cell: CellType):
+    """The mapped enhancement fields of an element batch, (9, 3, 3, g, E):
+    M~_k = (j0 / det J) J0^-T M^p_k J0^-1, which makes int M~ : const dV = 0
+    hold exactly (the patch test)."""
+    _, J0inv, j0 = origin_geometry(X, cell)
+    dN = torch.as_tensor(cell.dN, dtype=X.dtype, device=X.device)
+    detJ = gm.det3l(torch.einsum("aiE,gaj->ijgE",
+                                 X.reshape(cell.nen, 3, -1), dN))
+    Mp = torch.as_tensor(eas9_param_modes(cell), dtype=X.dtype,
+                         device=X.device)
+    return (torch.einsum("miE,kmng,njE->kijgE", J0inv, Mp, J0inv)
+            * (j0[None] / detJ)[None, None, None])
+
+
+def _modes_times(Mt, alpha):
+    """sum_k M~_k alpha_k: (9, 3, 3, g, E), (9, E) -> (3, 3, g, E)."""
+    out = Mt[0] * alpha[0]
+    for k in range(1, Mt.shape[0]):
+        out = out + Mt[k] * alpha[k]
+    return out
+
+
+def _eas_stress(Ec, wdet, Mt, material):
+    """The stress at the enhanced strain Ec + sum_k M~_k alpha_k, with alpha
+    from the reference's batched local Newton on int M~ : S dV = 0: alpha
+    starts at 0 in every call (no history), each iteration solves the
+    (E, 9, 9) local systems, whose columns are the stress's forward
+    derivatives along M~_l.  Differentiating this unrolled computation
+    (nested forward mode) gives the reference's tangent, also where the
+    local iterations have not converged.  The reference's fixed count of
+    local iterations: 1 for SVK, whose local problem is linear, else 3."""
+    alpha = Ec.new_zeros((N_EAS, Ec.shape[-1]))
+    svk = type(material).__name__ == "StVenantKirchhoff"
+    for _ in range(1 if svk else 3):
+        Etot = Ec + _modes_times(Mt, alpha)
+        S, dS = torch.func.vmap(
+            lambda t: torch.func.jvp(material.pk2_from_E, (Etot,), (t,)))(Mt)
+        r = (Mt * (S[0] * wdet)[None]).sum(dim=(1, 2, 3))  # (9, E)
+        A = torch.einsum("kijgE,lijgE->Ekl", Mt, dS * wdet)
+        # solve_ex: no singularity check, whose host sync cost 23 ms per
+        # call at n=56 on the card; a singular system gives a non-finite
+        # residual, which Newton never counts as converged
+        alpha = alpha + torch.linalg.solve_ex(A, -r.T)[0].T
+    return material.pk2_from_E(Ec + _modes_times(Mt, alpha))
+
+
+def _fbar_kinematics(H, H0):
+    """F = I + H, J = det F, lr = (2/3)(log J0 - log J) and the F-bar
+    Green-Lagrange strain E_bar = s^2 E_H + (s^2 - 1) I / 2 with
+    s^2 - 1 = expm1(lr) (cancellation-free, as the reference has it)."""
+    F = H + gm.eye3l(H)
+    J = gm.det3l(F)
+    J0 = gm.det3l(H0 + gm.eye3l(H0))
+    lr = (2.0 / 3.0) * (torch.log(J0)[None] - torch.log(J))
+    s2m1 = torch.expm1(lr)
+    Ebar = (1.0 + s2m1) * _green_lagrange(H) + 0.5 * s2m1 * gm.eye3l(H)
+    return F, J, J0, lr, s2m1, Ebar
+
+
+def tech_force(tech, G, wdet, geo, u, material, kinem="nonlinear"):
+    """Internal force of an element batch under ``tech``: u (nen*3, E) ->
+    (nen*3, E).  ``geo`` is the technology's geometry: G0 (nen, 3, E) of
+    ``origin_geometry`` for F-bar, M~ of ``eas_modes`` for EAS.
+
+    F-bar (nonlinear kinematics only): the spatial form
+    f_a = sum_g wdet_g (J / J0) F_bar S(E_bar) F_bar^T . grad_x N_a, with
+    F_bar = (J0 / J)^(1/3) F, J0 the determinant at the element centre.
+    EAS: the stress at the enhanced strain (``_eas_stress``), then
+    f = sum_g wdet_g F S G_g (nonlinear) or sum_g wdet_g S G_g (linear)."""
+    nen, _, _, E = G.shape
+    ut = u.reshape(nen, 3, E)
+    H = _grad(ut, G)
+    if tech == "fbar":
+        if kinem != "nonlinear":
+            raise ValueError("TECH fbar requires 3D nonlinear kinematics")
+        H0 = _grad(ut, geo[:, :, None])[:, :, 0]
+        F, J, J0, lr, _, Ebar = _fbar_kinematics(H, H0)
+        S = material.pk2_from_E(Ebar)
+        Fbar = torch.exp(0.5 * lr) * F
+        tau = gm.matmul3l(gm.matmul3l(Fbar, S), Fbar.transpose(0, 1)) \
+            * (J / J0[None])
+        Finv = gm.inv3l(F, J)
+        gx = sum(G[:, k:k + 1] * Finv[k][None] for k in range(3))
+        out = _integrate(tau * wdet, gx)
+    elif tech == "eas_mild":
+        Ec = _sym(H) if kinem == "linear" else _green_lagrange(H)
+        S = _eas_stress(Ec, wdet, geo, material)
+        P = S if kinem == "linear" else gm.matmul3l(H + gm.eye3l(H), S)
+        out = _integrate(P * wdet, G)
+    else:
+        raise ValueError(f"unknown element technology {tech!r}")
+    return out.reshape(nen * 3, E)
+
+
+def tech_tangent(tech, G, wdet, geo, u, v, material, mcoef=0.0, N=None,
+                 kinem="nonlinear"):
+    """Directional derivative of ``tech_force`` along v (forward-mode AD of
+    the force, as the reference takes ``jax.jvp``; F-bar's is
+    nonsymmetric) plus ``mcoef * sum_g wdet_g N N^T v``."""
+    _, out = torch.func.jvp(
+        lambda x: tech_force(tech, G, wdet, geo, x, material, kinem),
+        (u,), (v,))
+    if mcoef:
+        nen, E = G.shape[0], G.shape[-1]
+        out = out + mcoef * _mass(wdet, N, v.reshape(nen, 3, E)).reshape(
+            nen * 3, E)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stresses at the Gauss points and at the nodes (result tests)
+# ---------------------------------------------------------------------------
+
+
+def gp_stresses(G, u, material, kinem="nonlinear", tech="none", G0=None):
+    """Cauchy stress at the Gauss points, (3, 3, g, E): sigma = F S F^T / J,
+    or under ``kinem`` linear the law's stress at the small strain.  Under
+    F-bar (G0: ``origin_geometry``'s gradients) the stress is taken at
+    F_bar = (J0 / J)^(1/3) F, as the residual takes it; EAS's output is the
+    standard one (the reference's)."""
+    nen, _, _, E = G.shape
+    ut = u.reshape(nen, 3, E)
+    H = _grad(ut, G)
+    if kinem == "linear":
+        return material.pk2_from_E(_sym(H))
+    F = H + gm.eye3l(H)
+    Egl = _green_lagrange(H)
+    if tech == "fbar":
+        H0 = _grad(ut, G0[:, :, None])[:, :, 0]
+        _, _, _, _, s2m1, Egl = _fbar_kinematics(H, H0)
+        F = torch.sqrt(1.0 + s2m1) * F
+    S = material.pk2_from_E(Egl)
+    return gm.matmul3l(gm.matmul3l(F, S), F.transpose(0, 1)) / gm.det3l(F)
+
+
+def extrapolate_to_nodes(gp_vals, cell: CellType):
+    """Gauss-point values (..., g, E) -> nodal values (nen, ..., E) of the
+    polynomial through them: the pseudo-inverse of the Gauss-point shape
+    matrix N (g, nen), the reference's (exact for hex8; tet4's single
+    Gauss point broadcasts)."""
+    Mx = torch.as_tensor(np.linalg.pinv(np.asarray(cell.N)),
+                         dtype=gp_vals.dtype, device=gp_vals.device)
+    return torch.einsum("ag,...gE->a...E", Mx, gp_vals)

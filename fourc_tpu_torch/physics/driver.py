@@ -213,10 +213,9 @@ def time_loop_adaptive(
 
 
 def newton_params_from(dyn: dict, solver: dict) -> NewtonParams:
-    """The deck's Newton and linear-solver settings.  GMRES's restart
-    length and the debug table of io verbosity 'debug' have no field here:
-    the structure driver refuses decks that set them, and solver methods
-    other than cg and direct."""
+    """The deck's Newton and linear-solver settings.  The debug table of io
+    verbosity 'debug' has no field here: the structure driver refuses decks
+    that set it."""
     return NewtonParams(
         max_iter=dyn["maxiter"],
         tol_res=dyn["tolres"],
@@ -227,6 +226,7 @@ def newton_params_from(dyn: dict, solver: dict) -> NewtonParams:
         lin_maxiter=solver["maxiter"],
         lin_rtol=solver["rtol"],
         lin_adaptive=solver["adaptive"],
+        gmres_restart=solver["gmres_restart"],
         line_search=dyn.get("linesearch", False),
         ptc=dyn.get("nlnsol", "fullnewton") == "ptc",
         ptc_dt0=dyn.get("ptc_dt0", 1.0),

@@ -28,10 +28,11 @@ class NewtonParams:
     combine: str = "and"  # "and" | "or" of the two tests
     stag_tol: float = 0.0  # stop when rnorm > stag_tol * previous; 0 = off
     stag_min_drop: float = 1e-3
-    lin_method: str = "cg"  # "cg" | "direct"
+    lin_method: str = "cg"  # "cg" | "gmres" | "bicgstab" | "direct"
     lin_maxiter: int = 500
     lin_rtol: float = 1e-4  # floor of the adaptive forcing term
     lin_adaptive: bool = True
+    gmres_restart: int = 50
     line_search: bool = False
     ls_max_halvings: int = 4
     ptc: bool = False  # pseudo-transient continuation
@@ -60,7 +61,7 @@ def _stagnated(rnorm, rprev, k, params):
 
 
 def newton_solve(residual_fn, u0, free_mask, precond, params: NewtonParams,
-                 matvec_fn):
+                 matvec_fn, batched=False):
     """Solve residual_fn(u) = 0 on the free entries.
 
     residual_fn: u -> r (constrained entries ignored)
@@ -68,10 +69,13 @@ def newton_solve(residual_fn, u0, free_mask, precond, params: NewtonParams,
                  already carry their prescribed values
     precond:     r -> z, constrained entries passed through
     matvec_fn:   (u, v) -> J(u) v, the tangent operator
+    batched:     matvec_fn is plain PyTorch in v (``torch.func.vmap`` can
+                 batch it): the direct solve probes it at once
 
-    The linear solver is preconditioned CG or, with ``lin_method``
-    "direct", the dense direct solve (precond unused; GMRES and BiCGStab
-    are not ported).  Returns (u, stats) with iters, resnorm, dispnorm,
+    The linear solver is ``lin_method``: preconditioned CG, GMRES
+    (restart ``gmres_restart``) or BiCGStab, each with tol = the forcing
+    term and atol = 0.1 tol_res, or the dense direct solve (precond
+    unused).  Returns (u, stats) with iters, resnorm, dispnorm,
     lin_iters, converged.
     """
     def masked_res(u):
@@ -100,12 +104,15 @@ def newton_solve(residual_fn, u0, free_mask, precond, params: NewtonParams,
                           params.lin_rtol), 1e-1)
         else:
             eta = params.lin_rtol
+        A = make_op(u, sigma)
         if params.lin_method == "direct":
-            res = solvers.direct(make_op(u, sigma), -r)
+            res = solvers.direct(A, -r, batched=batched)
         else:
-            res = solvers.cg(make_op(u, sigma), -r, M=precond, tol=eta,
-                             atol=0.1 * params.tol_res,
-                             maxiter=params.lin_maxiter)
+            kw = ({"restart": params.gmres_restart}
+                  if params.lin_method == "gmres" else {})
+            res = solvers.solve(params.lin_method, A, -r, M=precond, tol=eta,
+                                atol=0.1 * params.tol_res,
+                                maxiter=params.lin_maxiter, **kw)
         du = torch.where(free_mask, res.x, 0.0)
         u_new = u + du
         if params.line_search:

@@ -2,12 +2,14 @@
 
 Counterpart of the subset of fourc_tpu/physics/solid.py that the ported
 problems run: hex8, tet4 and wedge6 blocks of any law with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, consistent or
-lumped mass, Rayleigh damping under gen-alpha, Dirichlet and
-surface-traction conditions; statics, one-step-theta, gen-alpha and
-explicit central differences in time, the implicit ones with Newton and CG
-(preconditioned by multigrid, Jacobi or nodal-block Jacobi, or not at all)
-or a direct solve.  Three kinds of mesh, found from the mesh itself:
+(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, the element
+technologies F-bar and EAS9 "mild", consistent or lumped mass, Rayleigh
+damping under gen-alpha, Dirichlet, surface-traction and body-force
+conditions, nodal stresses; statics, one-step-theta, gen-alpha and
+explicit central differences in time, the implicit ones with Newton and CG,
+GMRES or BiCGStab (preconditioned by multigrid, Jacobi or nodal-block
+Jacobi, or not at all) or a direct solve.  Three kinds of mesh, found from
+the mesh itself:
 
 - a uniform lattice: the operators are collapsed stencils (kernels B1-B3);
 - general geometry on lattice topology (arbitrary node positions, e.g. a
@@ -24,9 +26,10 @@ or a direct solve.  Three kinds of mesh, found from the mesh itself:
   SVK runs the element-batch kernels (B6, B7); every other block the
   element route of ops/solid.py (plain PyTorch: the reference runs these
   blocks in XLA, not in a Pallas kernel), and a hex8 block of any law its
-  mass with B6.  ``kinem`` linear takes general topology and the element
-  route for every block, as the reference's lattice and Pallas paths need
-  nonlinear kinematics.
+  mass with B6.  ``kinem`` linear and a ``tech`` (F-bar, EAS) take general
+  topology and the element route for every block (``ops.tech_force`` under
+  a tech), as the reference's lattice and Pallas paths need nonlinear
+  kinematics and no tech.
 
 The kernels run on a CUDA device, their twins on the CPU.  State dicts from
 ``init_state``/``compute_initial_state`` hold flat dof vectors, as in the
@@ -85,10 +88,10 @@ class GenAlphaParams:
 
 @dataclass
 class SolidParams:
-    """Reference defaults.  The ported slices run tech "none", precond one
-    of PRECONDS (or the direct solver, ``newton.lin_method``), Rayleigh
-    damping under gen-alpha only and its stiffness part (``rayleigh_beta``)
-    on a uniform lattice only; SolidField and make_step refuse anything
+    """Reference defaults.  The ported slices run tech "none" or one of
+    ops.TECHS (F-bar under nonlinear kinematics only), precond one of
+    PRECONDS (or the direct solver, ``newton.lin_method``) and Rayleigh
+    damping under gen-alpha only; SolidField and make_step refuse anything
     else."""
 
     kinem: str = "nonlinear"
@@ -109,9 +112,11 @@ class SolidParams:
 class FieldBlock:
     """One element block of a field of general topology: its elements'
     coordinates X (nen*3, E) in the field's dtype, its law and, for a hex8
-    block whose law has a kernel model under nonlinear kinematics, the
-    kernels B6/B7; any other block takes the element route with its
-    geometry G, wdet computed once (ops/solid.py).  A hex8 block of any law
+    block whose law has a kernel model under nonlinear kinematics and no
+    tech, the kernels B6/B7; any other block takes the element route with
+    its geometry G, wdet computed once (ops/solid.py), and under a ``tech``
+    the technology's force with its geometry ``geo`` (F-bar's centre
+    gradients, EAS's enhancement fields).  A hex8 block of any law
     computes its mass with B6."""
 
     key: str
@@ -126,33 +131,68 @@ class FieldBlock:
     wdet: torch.Tensor | None = None
     N: torch.Tensor | None = None
     kinem: str = "nonlinear"
+    tech: str = "none"
+    geo: torch.Tensor | None = None
 
     def force(self, ue):
+        if self.tech != "none":
+            return ops.tech_force(self.tech, self.G, self.wdet, self.geo, ue,
+                                  self.material, self.kinem)
         if self.model is not None:
             return sk.hex8_force(self.X, ue, self.lam, self.mu, self.model)
         return ops.element_force(self.G, self.wdet, ue, self.material,
                                  kinem=self.kinem)
 
-    def tangent(self, ue, ve, mcoef):
-        """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass)."""
+    def tangent(self, ue, ve, mcoef, standard=False):
+        """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass); with
+        ``standard`` the tangent without the block's tech."""
         c = mcoef * self.density
+        if self.tech != "none" and not standard:
+            return ops.tech_tangent(self.tech, self.G, self.wdet, self.geo,
+                                    ue, ve, self.material, c, self.N,
+                                    self.kinem)
         if self.model is not None:
             return sk.hex8_tangent(self.X, ue, ve, self.lam, self.mu,
                                    self.model, c)
         return ops.element_tangent(self.G, self.wdet, ue, ve, self.material,
                                    c, self.N, kinem=self.kinem)
 
+    def hessian_at(self, ue, we):
+        """ve -> D^2 f(ue)[we, ve], the derivative along ve of the tangent
+        apply K(ue) we: forward-mode AD of the plain PyTorch tangent (B7's
+        twin on a block of a kernel law, the element route or the tech's
+        tangent), as the reference takes a second-order ``jax.jvp`` of its
+        XLA force."""
+        if self.tech != "none":
+            def tangent(x):
+                return ops.tech_tangent(self.tech, self.G, self.wdet,
+                                        self.geo, x, we, self.material,
+                                        kinem=self.kinem)
+        elif self.model is not None:
+            def tangent(x):
+                return ops.hex8_tangent_ref(self.X, x, we, self.lam, self.mu,
+                                            self.model)
+        else:
+            def tangent(x):
+                return ops.element_tangent(self.G, self.wdet, x, we,
+                                           self.material, kinem=self.kinem)
+        return lambda ve: torch.func.jvp(tangent, (ue,), (ve,))[1]
+
     def diag_blocks(self, ue):
         """The 3x3 nodal diagonal blocks of every element's tangent at ue,
         (nen, 3, 3, E), from its 3*nen unit probes: one tangent pass each
-        (B7 on a block of a kernel law)."""
+        (B7 on a block of a kernel law).  Under a tech the probes read the
+        standard tangent, as the reference's ``build_preconditioner`` does
+        (its ``element_stiffness`` takes no tech): the preconditioner, and
+        with it the Krylov counts, are the reference's."""
         nd, E = ue.shape
         out = ue.new_empty((nd // 3, 3, 3, E))
         for k in range(nd):
             probe = torch.zeros_like(ue)
             probe[k] = 1.0
             a, j = divmod(k, 3)
-            out[a, :, j] = self.tangent(ue, probe, 0.0)[3 * a:3 * a + 3]
+            out[a, :, j] = self.tangent(ue, probe, 0.0,
+                                        standard=True)[3 * a:3 * a + 3]
         return out
 
     def mass(self, ve):
@@ -184,11 +224,11 @@ def unsupported_blocks(disc: Discretization, block_mat: dict) -> list:
 
 
 def takes_lattice_path(disc: Discretization, block_mat: dict,
-                       kinem: str) -> bool:
+                       kinem: str, tech: str = "none") -> bool:
     """A mesh of one hex8 block whose law has a kernel model keeps the
-    lattice paths under nonlinear kinematics when its connectivity is a
-    lattice; every other mesh has general topology."""
-    if len(disc.blocks) != 1 or kinem != "nonlinear":
+    lattice paths under nonlinear kinematics and no tech when its
+    connectivity is a lattice; every other mesh has general topology."""
+    if len(disc.blocks) != 1 or kinem != "nonlinear" or tech != "none":
         return False
     key, blk = next(iter(disc.blocks.items()))
     return (blk.cell == "hex8"
@@ -203,7 +243,7 @@ class SolidField:
     def __init__(self, disc: Discretization, materials: dict,
                  params: SolidParams, dirichlet=(), neumann=(),
                  functions: FunctionManager | None = None,
-                 device="cuda", dtype=torch.float64):
+                 device="cuda", dtype=torch.float64, body_forces=()):
         self.disc = disc
         self.params = params
         self.device = resolve_device(device)
@@ -217,7 +257,8 @@ class SolidField:
                 raise ValueError(f"block {key} mixes materials")
             self.block_mat[key] = materials[mid]
         self._check_supported()
-        lattice_path = takes_lattice_path(disc, self.block_mat, params.kinem)
+        lattice_path = takes_lattice_path(disc, self.block_mat, params.kinem,
+                                          params.tech)
         self.dofmap = disc.dofmap(self.ndpn, lattice=lattice_path)
         self.ndof = self.dofmap.ndof
         self.dbc = DirichletHandler(list(dirichlet), disc.coords, self.ndpn,
@@ -237,12 +278,6 @@ class SolidField:
             self._init_lattice()
         else:
             self.blocks = [self._field_block(key) for key in self.block_mat]
-        if params.rayleigh_beta and (self.lattice is None
-                                     or self.lattice.h is None):
-            raise NotImplementedError(
-                "not ported: k_damp (stiffness-proportional Rayleigh "
-                "damping) off the uniform lattice (it is ported for one hex8 "
-                "block of Neo-Hooke or SVK on a uniform lattice)")
         self._mlump = None
         free = torch.as_tensor(self.dbc.free_mask, dtype=torch.float64)
         self.free = self.to_lattice(free.to(self.device)) > 0
@@ -256,6 +291,9 @@ class SolidField:
                 fc = get_cell(fb.cell)
                 self._neumann_data.append((nb, fc, fb.conn,
                                            disc.coords[fb.conn]))
+        self.body_forces = list(body_forces)
+        self._body_data = [self._body_block(key) for key in self.block_mat] \
+            if self.body_forces else []
 
     def _init_lattice(self):
         """One hex8 block of a law with a kernel, on a lattice."""
@@ -279,8 +317,7 @@ class SolidField:
 
     def _field_block(self, key) -> FieldBlock:
         """General topology: a block's element batch, its kernel model or
-        its element-route geometry (computed in float64, kept in the
-        field's dtype)."""
+        its element-route geometry (``_host_geometry``)."""
         mat = self.block_mat[key]
         cell = get_cell(self.disc.blocks[key].cell)
         X = self._element_coords(key)  # float64 (E, nen, 3)
@@ -289,30 +326,53 @@ class SolidField:
                          density=float(mat.density or 0.0),
                          X=X.to(self.dtype), kinem=self.params.kinem)
         model = _lat.material_model(mat)
+        tech = self.params.tech
         if (cell.name == "hex8" and model is not None
-                and self.params.kinem == "nonlinear"):
+                and self.params.kinem == "nonlinear" and tech == "none"):
             blk.model = model
             blk.lam, blk.mu = (float(x) for x in lame(mat.youngs, mat.nue))
         else:
-            G, wdet = ops.element_geometry(X, cell)
-            blk.G, blk.wdet = G.to(self.dtype), wdet.to(self.dtype)
+            blk.G, blk.wdet = self._host_geometry(key, ops.element_geometry)
             blk.N = self._t(cell.N)
+        if tech != "none":
+            blk.tech = tech
+            blk.geo = self._host_geometry(
+                key, (lambda X, c: ops.origin_geometry(X, c)[0])
+                if tech == "fbar" else ops.eas_modes)
         return blk
+
+    def _host_geometry(self, key, fn):
+        """``fn(X, cell)`` of a block's float64 element coordinates X
+        (nen*3, E), computed once on the host in float64 and moved to the
+        field's device in its dtype: every device then sees the same tables
+        to the last bit, and a float64 card run parts from the CPU's only by
+        the rounding of its elementwise functions (the 4C-converted decks'
+        1e-12 anchors sit near that noise).  Setup only, as the SA-AMG
+        setup."""
+        conn = self.disc.blocks[key].conn
+        cell = get_cell(self.disc.blocks[key].cell)
+        X = torch.as_tensor(self.disc.coords[conn])
+        out = fn(X.reshape(X.shape[0], -1).T.contiguous(), cell)
+        return tuple(t.to(self.device, self.dtype) for t in out) \
+            if isinstance(out, tuple) else out.to(self.device, self.dtype)
 
     def _check_supported(self):
         p = self.params
         out = unsupported_blocks(self.disc, self.block_mat)
         if p.kinem not in ("nonlinear", "linear"):
             out.append(f"kinem {p.kinem!r}")
-        if p.tech != "none":
+        if p.tech not in ("none",) + ops.TECHS:
             out.append(f"tech {p.tech!r}")
+        elif p.tech == "fbar" and p.kinem != "nonlinear":
+            raise ValueError("TECH fbar requires 3D nonlinear kinematics")
         if p.mass not in ("consistent", "lumped"):
             out.append(f"{p.mass} mass")
         if out:
             raise NotImplementedError(
                 "not ported: " + "; ".join(out) + " (the ported solid field "
                 f"takes {', '.join(SOLID_CELLS)} blocks in 3D, tech 'none', "
-                "consistent or lumped mass)")
+                f"{' or '.join(repr(t) for t in ops.TECHS)}, consistent or "
+                "lumped mass)")
 
     def _t(self, x):
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,
@@ -361,14 +421,38 @@ class SolidField:
         return lk.neo_tangent(u, v, self.G, self.wdet, self.N, self.lam,
                               self.mu, self.model, c)
 
+    @property
+    def plain_tangent(self):
+        """The tangent (and D^2f) launches no kernel on this device: on the
+        CPU (the kernels' twins), or on general topology with every block on
+        the element route or under a tech.  ``torch.func.vmap`` can then
+        batch it (the direct solve's probes)."""
+        return self.device.type == "cpu" or (
+            self.lattice is None and all(b.model is None
+                                         for b in self.blocks))
+
     def force_hessian_at(self, u, w):
         """v -> the derivative along v of K(u) w, D^2 f(u)[w, v]: the Newton
-        operator's term of stiffness-proportional Rayleigh damping, ported
-        for the uniform lattice (ops/lattice.py neo_force_hessian_at, plain
-        PyTorch on every device)."""
-        if self.lattice is None or self.lattice.h is None:
-            raise NotImplementedError(
-                "D^2 f (k_damp) is ported for the uniform lattice")
+        operator's term of stiffness-proportional Rayleigh damping, in plain
+        PyTorch on every device (no TPU kernel computes it; the reference
+        takes a second-order ``jax.jvp`` of its force).  On the uniform
+        lattice by hand (ops/lattice.py neo_force_hessian_at); on general
+        geometry and general topology by forward-mode AD of the tangent's
+        twin (B5's, B7's) or of the element route's tangent."""
+        if self.blocks:
+            dm = self.dofmap
+            parts = [(b, b.hessian_at(dm.gather(u, b.key),
+                                      dm.gather(w, b.key)))
+                     for b in self.blocks]
+            return lambda v: dm.scatter_add(
+                {b.key: h(dm.gather(v, b.key)) for b, h in parts})
+        if self.x is not None:
+            def tangent(x):
+                return _lat.neo_jvp_gen_ref(self.x, x, w, self.dN, self.w,
+                                            self.N, self.lam, self.mu,
+                                            self.model)
+
+            return lambda v: torch.func.jvp(tangent, (u,), (v,))[1]
         return _lat.neo_force_hessian_at(u, w, self.G, self.wdet, self.lam,
                                          self.mu, self.model)
 
@@ -390,8 +474,46 @@ class SolidField:
                                     stiff=False)
         return lk.stencil_matvec(self.mass_stencil, v)
 
+    def _body_block(self, key):
+        """A block's body-force data, formed at load time in float64 on the
+        host (as ``_host_geometry``) and kept on the device: its Gauss
+        points' coordinates xg (E, g, 3), the weights rho wdet_g N_a
+        (E, g, nen) (rho 1 where the density is 0, as the reference has it)
+        and the element dofs (E * nen * 3,)."""
+        cell = get_cell(self.disc.blocks[key].cell)
+        conn = self.disc.blocks[key].conn
+        Xe = torch.as_tensor(self.disc.coords[conn])
+        N = torch.as_tensor(cell.N)
+        wdet = torch.cat([w for _, _, w in ops._chunks(Xe, cell,
+                                                       ops.ELEMENT_CHUNK)])
+        rho = float(self.block_mat[key].density or 0.0) or 1.0
+        edof = (torch.as_tensor(conn[:, :, None], dtype=torch.int64)
+                * self.ndpn + torch.arange(self.ndpn)).reshape(-1)
+        return tuple(t.to(self.device) for t in (
+            torch.einsum("eai,ga->egi", Xe, N),
+            rho * wdet[:, :, None] * N[None], edof))
+
+    def body_force(self, t):
+        """The body forces at time t as a flat float64 dof vector on the
+        device: sum_g rho wdet_g N_a val_k FUNCT_k(x_g, t), the FUNCTs
+        evaluated by torch at the Gauss points (no host work per step)."""
+        f = torch.zeros(self.ndof, dtype=torch.float64, device=self.device)
+        for bf in self.body_forces:
+            for xg, W, edof in self._body_data:
+                b = torch.zeros_like(xg)
+                for k in range(self.ndpn):
+                    if k < len(bf.val) and bf.val[k] != 0:
+                        fn = self.functions.get(bf.funct[k])
+                        b[..., k] = bf.val[k] * fn.on_device(xg, t)
+                fe = W[:, 0, :, None] * b[:, 0, None]  # (E, nen, 3)
+                for g in range(1, W.shape[1]):  # in order, on any device
+                    fe = fe + W[:, g, :, None] * b[:, g, None]
+                f.index_add_(0, edof, fe.reshape(-1))
+        return f
+
     def external_force(self, t):
-        """Surface tractions at time t, assembled on the host in float64."""
+        """Surface tractions at time t, assembled on the host in float64,
+        plus the body forces (``body_force``, on the device)."""
         f = np.zeros(self.ndof)
         for nb, fc, conn, Xf in self._neumann_data:
             xg = gm.interp_field(Xf, fc.N)
@@ -406,7 +528,10 @@ class SolidField:
             edof = conn[:, :, None] * self.ndpn + np.arange(self.ndpn)
             f += np.bincount(edof.reshape(-1), weights=fe.reshape(-1),
                              minlength=self.ndof)
-        return self.to_lattice(self._t(f))
+        if not self.body_forces:
+            return self.to_lattice(self._t(f))
+        f = torch.as_tensor(f, device=self.device) + self.body_force(t)
+        return self.to_lattice(f.to(self.dtype))
 
     def _element_coords(self, key):
         """General topology: float64 element coordinates (E, nen, 3) of a
@@ -547,6 +672,35 @@ class SolidField:
             return M
         return lambda r: self.to_lattice(M(self.from_lattice(r)))
 
+    def nodal_stresses(self, u):
+        """Cauchy stresses at the nodes, (n_nodes, 3, 3): each element's
+        Gauss-point stresses (``ops.gp_stresses``, under F-bar at F_bar)
+        extrapolated to its nodes and averaged over the elements that share
+        the node (the reference's code: the sum divided by the count of
+        elements, whatever its docstring says).  ``u``: a flat dof vector
+        or one in the field's layout; computed in the field's dtype on its
+        device."""
+        un = (u if u.dim() == 1 else self.from_lattice(u)).reshape(-1, 3)
+        nn = un.shape[0]
+        num = un.new_zeros((nn, 3, 3))
+        den = un.new_zeros((nn,))
+        for key, mat in self.block_mat.items():
+            cell = get_cell(self.disc.blocks[key].cell)
+            conn = torch.as_tensor(self.disc.blocks[key].conn,
+                                   device=self.device).long()
+            G, _ = self._host_geometry(key, ops.element_geometry)
+            G0 = (self._host_geometry(
+                key, lambda X, c: ops.origin_geometry(X, c)[0])
+                if self.params.tech == "fbar" else None)
+            ue = un[conn].reshape(conn.shape[0], -1).T
+            sig = ops.gp_stresses(G, ue, mat, self.params.kinem,
+                                  self.params.tech, G0)
+            nod = ops.extrapolate_to_nodes(sig, cell)  # (nen, 3, 3, E)
+            idx = conn.T.reshape(-1)
+            num.index_add_(0, idx, nod.permute(0, 3, 1, 2).reshape(-1, 3, 3))
+            den.index_add_(0, idx, torch.ones_like(idx, dtype=den.dtype))
+        return num / torch.clamp(den, min=1.0)[:, None, None]
+
 
 def init_state(f: SolidField):
     """Zero state, flat dof vectors."""
@@ -633,9 +787,9 @@ PRECONDS = ("none", "jacobi", "block_jacobi", "gmg", "amg")
 
 def make_step(f: SolidField, dt: float | None = None):
     """Build ``step(state) -> (state, stats)`` for the configured
-    integrator: statics, one-step-theta or gen-alpha with Newton (CG with a
-    preconditioner of PRECONDS, or the direct solve), or explicit central
-    differences."""
+    integrator: statics, one-step-theta or gen-alpha with Newton (CG, GMRES
+    or BiCGStab with a preconditioner of PRECONDS, or the direct solve), or
+    explicit central differences."""
     from fourc_tpu_torch.physics import solid_lattice as sl
 
     dt = float(dt if dt is not None else f.params.dt)
@@ -651,11 +805,11 @@ def make_step(f: SolidField, dt: float | None = None):
             f"and central-difference steps drop it)")
     if p.dyntype == "explicit":
         return sl.make_explicit_step(f, dt)
-    if p.newton.lin_method not in ("cg", "direct"):
+    if p.newton.lin_method not in solvers.SOLVERS:
         raise NotImplementedError(
             f"linear solver {p.newton.lin_method!r} is not ported "
-            f"(cg and direct are)")
-    if p.newton.lin_method == "cg" and p.precond not in PRECONDS:
+            f"({', '.join(solvers.SOLVERS)} are)")
+    if p.newton.lin_method != "direct" and p.precond not in PRECONDS:
         raise NotImplementedError(
             f"precond {p.precond!r} is not ported ({', '.join(PRECONDS)} "
             f"are)")
@@ -668,7 +822,7 @@ def make_step(f: SolidField, dt: float | None = None):
         shift = (1 - ga.alpha_m) / (ga.beta * dt * dt)
         build = sl.make_lattice_genalpha_step
     M = _static_precond(f, mass_shift=shift)
-    if (M is None and p.newton.lin_method == "cg"
+    if (M is None and p.newton.lin_method != "direct"
             and p.precond in ("jacobi", "block_jacobi")):
         def precond_at(u0):
             return f.build_preconditioner(u0, mass_shift=shift)

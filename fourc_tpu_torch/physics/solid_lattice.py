@@ -122,7 +122,8 @@ def make_lattice_genalpha_step(f, dt: float, precond_at):
         u0 = torch.where(f.free, _predict(f.params.predictor, dt, d_n, v_n,
                                           a_n), gw)
         u, stats = newton_solve(residual, u0, f.free, precond_at(u0),
-                                f.params.newton, matvec_fn)
+                                f.params.newton, matvec_fn,
+                                batched=f.plain_tangent)
         v1, a1 = _newmark_updates(dt, u, d_n, v_n, a_n, beta, gamma)
         new_state = dict(state)
         new_state.update(d=u, v=v1, a=a1, t=t1, step=state["step"] + 1,
@@ -141,7 +142,7 @@ def make_statics_step(f, dt: float, precond_at):
         u0 = torch.where(f.free, state["d"], gw)
         u, stats = newton_solve(lambda d: f.internal_force(d) - fext1, u0,
                                 f.free, precond_at(u0), f.params.newton,
-                                f.tangent)
+                                f.tangent, batched=f.plain_tangent)
         new_state = dict(state)
         new_state.update(d=u, t=t1, step=state["step"] + 1,
                          fint=f.internal_force(u), fext=fext1)
@@ -176,7 +177,8 @@ def make_ost_step(f, dt: float, precond_at):
                                           a_n), gw)
         u, stats = newton_solve(residual, u0, f.free, precond_at(u0),
                                 f.params.newton,
-                                lambda u, v: th * f.tangent(u, v, mcoef))
+                                lambda u, v: th * f.tangent(u, v, mcoef),
+                                batched=f.plain_tangent)
         v1 = v_of(u)
         a1 = (v1 - v_n) / (th * dt) - (1 - th) / th * a_n
         new_state = dict(state)

@@ -2,13 +2,14 @@
 
 Counterpart of fourc_tpu/physics/structure_driver.py for the solid field the
 port carries: hex8, tet4 and wedge6 blocks of laws with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, consistent or
-lumped mass, statics, one-step-theta, gen-alpha (with Rayleigh damping) and
-explicit central differences, Newton with CG and a preconditioner
-(``gmg`` on a lattice, ``amg`` or ``gmg``'s SA-AMG fallback on general
-topology, ``jacobi``, ``block_jacobi`` or ``none``) or with the direct
-solver, Zienkiewicz-Xie adaptive time steps, Dirichlet conditions and
-surface tractions.
+(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, tech none,
+fbar or eas_mild, consistent or lumped mass, statics, one-step-theta,
+gen-alpha (with Rayleigh damping) and explicit central differences, Newton
+with CG, GMRES or BiCGStab and a preconditioner (``gmg`` on a lattice,
+``amg`` or ``gmg``'s SA-AMG fallback on general topology, ``jacobi``,
+``block_jacobi`` or ``none``) or with the direct solver, Zienkiewicz-Xie
+adaptive time steps, Dirichlet conditions, surface tractions and body
+forces, and nodal stresses for the result tests.
 ``check_supported`` names every setting of a deck that the reference
 honours and the port does not carry, before anything is built; the deck
 keys that the reference ignores for a structure problem stay ignored.
@@ -18,10 +19,12 @@ from __future__ import annotations
 
 import torch
 
+from fourc_tpu_torch.core.cells import SOLID_CELLS, get_cell
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.mesh import _detect_structured
+from fourc_tpu_torch.linalg.solvers import SOLVERS
 from fourc_tpu_torch.materials import make_material
-from fourc_tpu_torch.ops.lattice import detect_lattice
+from fourc_tpu_torch.ops.solid import TECHS
 from fourc_tpu_torch.physics import driver as drv
 from fourc_tpu_torch.physics import solid as ps
 from fourc_tpu_torch.physics.solid_lattice import from_lattice_state
@@ -62,8 +65,11 @@ def check_supported(deck, disc_name="structure"):
         out.append("problem.restart")
     if dyn["dynamictype"] not in ps.DYNTYPES:
         out.append(f"dynamictype {dyn['dynamictype']!r}")
-    if dyn["tech"] != "none":
+    if dyn["tech"] not in ("none",) + TECHS:
         out.append(f"tech {dyn['tech']!r}")
+    elif dyn["tech"] == "fbar" and dyn["kinem"] != "nonlinear":
+        out.append(f"tech 'fbar' under kinem {dyn['kinem']!r} (F-bar needs "
+                   f"nonlinear kinematics; the reference raises too)")
     for key in ("m_damp", "k_damp"):
         if dyn[key] and dyn["dynamictype"] != "genalpha":
             out.append(f"{key} {dyn[key]!r} under dynamictype "
@@ -72,9 +78,9 @@ def check_supported(deck, disc_name="structure"):
     if dyn["prestress"] != "none":
         out.append(f"prestress {dyn['prestress']!r}")
     implicit = dyn["dynamictype"] != "explicit"
-    if implicit and solver["method"] not in ("cg", "direct"):
-        out.append(f"solver.method {solver['method']!r} (cg and direct are "
-                   f"ported)")
+    if implicit and solver["method"] not in SOLVERS:
+        out.append(f"solver.method {solver['method']!r} "
+                   f"({', '.join(SOLVERS)} are ported)")
     iterative = implicit and solver["method"] != "direct"
     if iterative and solver["precond"] not in ps.PRECONDS:
         out.append(f"solver.precond {solver['precond']!r} "
@@ -108,27 +114,31 @@ def check_supported(deck, disc_name="structure"):
                            f"{solver['precond']!r} (SA-AMG assembles a "
                            f"linear-elastic operator from youngs and nue)")
         lattice = (len(block_mat) == len(disc.blocks)
-                   and ps.takes_lattice_path(disc, block_mat, dyn["kinem"])
+                   and ps.takes_lattice_path(disc, block_mat, dyn["kinem"],
+                                             dyn["tech"])
                    and _detect_structured(
                        disc, next(iter(disc.blocks.values()))) is not None)
         if iterative and solver["precond"] == "amg" and lattice:
             out.append("solver.precond 'amg' on a lattice mesh (SA-AMG is "
                        "ported for general topology; a lattice takes 'gmg')")
-        if dyn["k_damp"] and not (lattice and detect_lattice(disc)):
-            out.append(f"k_damp {dyn['k_damp']!r} off the uniform lattice "
-                       f"(stiffness-proportional Rayleigh damping is ported "
-                       f"for one hex8 block of Neo-Hooke or SVK on a uniform "
-                       f"lattice)")
+        stresses = [t for t in deck.result_tests
+                    if str(t.get("quantity", "")).lower().startswith(
+                        "stress_")]
+        for key, blk in disc.blocks.items():
+            cell = (get_cell(blk.cell) if stresses and blk.cell in SOLID_CELLS
+                    else None)
+            if (cell is not None and cell.ngp < cell.nen
+                    and cell.name != "tet4"):
+                out.append(f"nodal stresses of element block {key!r}: "
+                           f"{cell.ngp} Gauss points for {cell.nen} nodes "
+                           f"(the reference's pseudo-inverse extrapolation "
+                           f"is wrong there)")
     for nb in deck.conditions.get(disc_name, {}).get("neumann", ()):
         if nb.kind != "traction":
             out.append(f"neumann kind {nb.kind!r}")
         cells = sorted({fb.cell for fb in nb.faces} - {"quad4"})
         if cells:
             out.append(f"neumann faces {cells}")
-    for t in deck.result_tests:
-        q = str(t.get("quantity", "")).lower()
-        if q.startswith("stress_"):
-            out.append(f"result quantity {q!r} (nodal stresses)")
     if out:
         raise NotImplementedError("not ported: " + "; ".join(out))
 
@@ -141,6 +151,7 @@ def build_field(deck, disc_name="structure", device="cuda") -> ps.SolidField:
         disc, materials, solid_params_from(deck),
         dirichlet=conds.get("dirichlet", ()),
         neumann=conds.get("neumann", ()),
+        body_forces=conds.get("body_force", ()),
         functions=deck.functions, device=device,
         dtype=getattr(torch, deck.problem["dtype"]),  # float64 by default
     )
@@ -184,7 +195,9 @@ def run(deck, callbacks=None, device="cuda") -> drv.RunResult:
 class SolidFieldView:
     """Result-test access to a solid field: nodal displacement, velocity
     and acceleration components, read from flat dof vectors (a lattice
-    field's state is in the padded lattice layout)."""
+    field's state is in the padded lattice layout), and nodal Cauchy
+    stresses ``stress_xx`` ... ``stress_zx`` (``SolidField.nodal_stresses``
+    at the state's displacement)."""
 
     _VEC = {"disp": "d", "vel": "v", "acc": "a"}
     _COMP = {"x": 0, "y": 1, "z": 2}
@@ -198,8 +211,10 @@ class SolidFieldView:
     def node_value(self, state, quantity: str, node: int):
         q = quantity.lower()
         if q.startswith("stress_"):
-            raise NotImplementedError(f"{quantity!r}: nodal stresses are "
-                                      f"not ported")
+            ij = q.split("_")[1]
+            i, j = self._COMP[ij[0]], self._COMP[ij[1]]
+            sig = self.f.nodal_stresses(state["d"])
+            return float(sig[node, i, j])
         if q[:-1] in self._VEC and q[-1] in self._COMP:
             vec = self.flat_state(state)[self._VEC[q[:-1]]]
             return float(vec.reshape(-1, self.f.ndpn)[node, self._COMP[q[-1]]])

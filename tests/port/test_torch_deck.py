@@ -3,8 +3,9 @@
 The gate decks run through ``fourc_tpu_torch.app.main`` on the CPU in
 float64 (the kernels' twins and the element route) and must meet their
 RESULT DESCRIPTION anchors: those that the JAX package wrote into the
-lattice, AMG and tet4 decks, and those quoted verbatim from 4C in the two
-converted hex8 and wedge6 decks.  The loader is held against
+lattice, AMG, tet4, integrator, EAS, F-bar and GOH decks, and those quoted
+verbatim from 4C in the three converted hex8 and wedge6 decks (the F-bar
+one with nodal stresses).  The loader is held against
 ``fourc_tpu.io.deck.load`` (numpy loading, no jit): meshes, sets, validated
 sections, conditions and FUNCTs must be identical.  Every other structure
 deck in the repository is refused with NotImplementedError before the field
@@ -41,9 +42,16 @@ TET4 = os.path.join(ROOT, "decks", "solid_tet4_unstructured.yaml")
 INTEGRATOR_DECKS = [os.path.join(ROOT, "decks", f"solid_{name}.yaml")
                     for name in ("rayleigh_lumped_wide", "ost_vibration",
                                  "explicit_wave", "timada_pulse")]
+# F-bar, EAS, fibres, the body force and nodal stresses
+HEX8_FBAR = os.path.join(ROOT, "decks", "ref_converted",
+                         "solid_ele_hex8_standard_fbar.yaml")
+TECH_DECKS = [os.path.join(ROOT, "decks", f"solid_{name}.yaml")
+              for name in ("eas_bending", "fbar_compression",
+                           "goh_artery_strip")]
 # deck -> number of anchors
 GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
-              TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS}}
+              TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS},
+              **{path: 3 for path in TECH_DECKS}, HEX8_FBAR: 22}
 
 
 def _structure_decks():
@@ -143,7 +151,7 @@ def _same_faces(got, want):
 
 
 @pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC, WEDGE6_DYNAMIC,
-                                  TET4],
+                                  TET4, HEX8_FBAR],
                          ids=lambda p: os.path.basename(p))
 def test_loader_matches_reference(path):
     from fourc_tpu.io import deck as jdeck
@@ -183,6 +191,8 @@ def test_loader_matches_reference(path):
             _same_faces(a.faces, b.faces)
             assert (a.onoff, a.val, a.funct, a.kind) == \
                 (b.onoff, b.val, b.funct, b.kind)
+        assert [(a.val, a.funct) for a in conds["body_force"]] == \
+            [(b.val, b.funct) for b in wc["body_force"]]
     xyz = np.random.default_rng(0).uniform(-1, 2, size=(5, 3))
     for fid in got.raw.get("functions") or {}:
         for t in (0.0, 0.02, 0.37):
@@ -202,22 +212,22 @@ def test_unported_structure_deck_is_refused(path, monkeypatch):
         driver.run(path, device="cpu")
 
 
-# a setting the port still refuses, set on a copy of a deck it runs:
-# (section, key, value, what the refusal names)
+# settings the port still refuses, set on a copy of a deck it runs:
+# (section, {key: value}, what the refusal names)
 UNPORTED_SETTINGS = {
-    "tech_fbar": ("structural_dynamic", "tech", "fbar", "tech 'fbar'"),
-    "tech_eas_mild": ("structural_dynamic", "tech", "eas_mild",
-                      "tech 'eas_mild'"),
-    "gmres": ("solver", "method", "gmres", "solver.method 'gmres'"),
-    "bicgstab": ("solver", "method", "bicgstab", "solver.method 'bicgstab'"),
-    "chebyshev": ("solver", "precond", "chebyshev",
+    "chebyshev": ("solver", {"precond": "chebyshev"},
                   "solver.precond 'chebyshev'"),
-    "prestress": ("structural_dynamic", "prestress", "mulf",
+    "prestress": ("structural_dynamic", {"prestress": "mulf"},
                   "prestress 'mulf'"),
-    "k_damp_jittered": ("geometry", "jitter", 0.3, "k_damp 0.002 off the "
-                        "uniform lattice"),
-    "m_damp_statics": ("structural_dynamic", "dynamictype", "statics",
+    "m_damp_statics": ("structural_dynamic", {"dynamictype": "statics"},
                        "m_damp 0.3 under dynamictype 'statics'"),
+    "fbar_kinem_linear": ("structural_dynamic",
+                          {"tech": "fbar", "kinem": "linear"},
+                          "tech 'fbar' under kinem 'linear'"),
+    "unported_summand": ("materials", {1: {
+        "type": "elasthyper", "density": 1.0, "summands": [
+            {"type": "isoyeoh", "c1": 1.0, "c2": 0.0, "c3": 0.0}]}},
+        "elasthyper summand 'isoyeoh' is not ported"),
 }
 
 
@@ -225,13 +235,10 @@ UNPORTED_SETTINGS = {
 def test_unported_setting_is_refused_by_name(name, monkeypatch):
     """The Rayleigh deck with one setting the port does not carry is
     refused, naming it, before the field is built."""
-    section, key, value, named = UNPORTED_SETTINGS[name]
+    section, values, named = UNPORTED_SETTINGS[name]
     with open(INTEGRATOR_DECKS[0]) as fh:
         data = yaml.safe_load(fh)
-    if section == "geometry":
-        data["geometry"]["generator"][key] = value
-    else:
-        data.setdefault(section, {})[key] = value
+    data.setdefault(section, {}).update(values)
 
     def built(*args, **kwargs):
         raise AssertionError("the field was built before the refusal")

@@ -330,14 +330,14 @@ def test_force_hessian_on_the_card_matches_the_cpu(cuda, dtype, model):
     assert _rel(out[cuda].cpu().double(), out["cpu"]) <= TOL[dtype]
 
 
-def _slice4c_field(device, **changes):
-    """A clamped 6 x 4 x 5 Neo-Hooke box under a sinusoidal shear traction,
-    float64, with ``changes`` to its SolidParams."""
+def _slice4c_field(device, shape=(6, 4, 5), **changes):
+    """A clamped 6 x 4 x 5 (or ``shape``) Neo-Hooke box under a sinusoidal
+    shear traction, float64, with ``changes`` to its SolidParams."""
     from fourc_tpu_torch.core import conditions, functions, gridgen
     from fourc_tpu_torch.materials import make_material
     from fourc_tpu_torch.physics import solid as ps
 
-    disc = gridgen.box(6, 4, 5)
+    disc = gridgen.box(*shape)
     params = ps.SolidParams(dyntype="genalpha", precond="gmg",
                             genalpha=ps.GenAlphaParams(rho_inf=0.9))
     params.newton.tol_res = 1e-9
@@ -397,3 +397,77 @@ def test_slice4c_step_on_the_card_matches_the_cpu(cuda, case):
         out[device] = state
     for k in ("d",) if case == "statics" else ("d", "v", "a"):  # v = a = 0
         assert _rel(out[cuda][k].cpu(), out["cpu"][k]) <= TOL[torch.float64]
+
+
+# slice 4d: F-bar and EAS (plain PyTorch on every device), GMRES and
+# BiCGStab, body forces, nodal stresses and D^2f off the uniform lattice,
+# on the card against the CPU
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("tech", sops.TECHS)
+def test_tech_on_the_card_matches_the_cpu(cuda, dtype, tech):
+    from fourc_tpu_torch.core import gridgen
+    from fourc_tpu_torch.materials import make_material
+
+    disc = gridgen.box(3, 2, 2)
+    rng = np.random.default_rng(23)
+    conn = disc.blocks["hex8"].conn
+    c = cells.get_cell("hex8")
+    X = disc.coords + rng.uniform(-0.05, 0.05, disc.coords.shape)
+    mat = make_material(dict(ROUTE_MATERIALS["neohooke"]))
+    nodal = {"X": X, "u": rng.normal(size=X.shape) * 0.05,
+             "v": rng.normal(size=X.shape)}
+    out = {}
+    for device, dt in ((cuda, dtype), ("cpu", torch.float64)):
+        X64, u, v = (torch.as_tensor(nodal[k][conn].reshape(len(conn), -1).T
+                                     .copy(), device=device)
+                     for k in ("X", "u", "v"))
+        G, wdet = (t.to(dt) for t in sops.element_geometry(X64, c))
+        geo = (sops.origin_geometry(X64, c)[0] if tech == "fbar"
+               else sops.eas_modes(X64, c)).to(dt)
+        N = torch.as_tensor(c.N, dtype=dt, device=device)
+        u, v = u.to(dt), v.to(dt)
+        out[device] = (sops.tech_force(tech, G, wdet, geo, u, mat),
+                       sops.tech_tangent(tech, G, wdet, geo, u, v, mat,
+                                         137.5, N))
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert _rel(got.cpu().double(), want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("case", ["fbar_gmres", "eas_cg", "fbar_bicgstab",
+                                  "k_damp_general_topology",
+                                  "body_force"])
+def test_slice4d_step_on_the_card_matches_the_cpu(cuda, case):
+    """Two float64 steps of a 3 x 2 x 2 box of the slice-4c problem under a
+    tech and a Krylov method (SA-AMG, general topology), with k_damp under
+    linear kinematics, or with a body force; then the nodal stresses."""
+    from fourc_tpu_torch.core.conditions import BodyForce
+    from fourc_tpu_torch.physics import solid as ps
+
+    tech, method = {"fbar_gmres": ("fbar", "gmres"),
+                    "eas_cg": ("eas_mild", "cg"),
+                    "fbar_bicgstab": ("fbar", "bicgstab")}.get(
+                        case, ("none", "cg"))
+    out = {}
+    for device in (cuda, "cpu"):
+        changes = {"tech": tech, "precond": "amg"}
+        if case == "k_damp_general_topology":
+            changes.update(rayleigh_alpha=0.3, rayleigh_beta=0.002,
+                           kinem="linear")
+        f = _slice4c_field(device, (3, 2, 2), **changes)
+        f.params.newton.lin_method = method
+        if case == "body_force":
+            f = _slice4c_field(device, (3, 2, 2), precond="amg",
+                               kinem="linear")
+            f.body_forces = [BodyForce(val=[0.0, 30.0, -50.0],
+                                       funct=[0, 1, 0])]
+            f._body_data = [f._body_block(k) for k in f.block_mat]
+        state = ps.compute_initial_state(f, ps.init_state(f))
+        step = ps.make_step(f, dt=0.02)
+        for _ in range(2):
+            state, stats = step(state)
+            assert stats["converged"]
+        out[device] = (state["d"], state["v"], f.nodal_stresses(state["d"]))
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert _rel(got.cpu(), want) <= TOL[torch.float64]

@@ -191,31 +191,27 @@ def test_step_matches_reference(flagship):
                                   convert.flat_from_lattice(sp["d"].numpy()))
 
 
-@pytest.mark.parametrize("change", ["k_damp_jittered", "k_damp_linear",
-                                    "rayleigh_statics", "rayleigh_ost",
-                                    "chebyshev", "gmres", "fbar",
-                                    "non_hex8"])
+@pytest.mark.parametrize("change", ["rayleigh_statics", "rayleigh_ost",
+                                    "chebyshev", "gmres_chebyshev",
+                                    "bicgstab_chebyshev", "dyntype_unknown",
+                                    "mass_unknown", "non_hex8"])
 def test_unported_configurations_refuse(change):
     disc = gridgen.box(2, 2, 2)
     params = ps.SolidParams(dyntype="genalpha", precond="gmg")
     if change == "non_hex8":  # a tet4 block must not be read as hex8
         disc.blocks["hex8"].cell = "tet4"
-    elif change == "k_damp_jittered":  # general geometry on the lattice
-        disc.coords = disc.coords + np.random.default_rng(0).uniform(
-            -0.05, 0.05, disc.coords.shape) * (disc.coords % 1.0 > 0)
-        params.rayleigh_beta = 0.01
-    elif change == "k_damp_linear":  # kinem linear: general topology
-        params.kinem, params.rayleigh_beta = "linear", 0.01
     elif change.startswith("rayleigh_"):
         params.rayleigh_alpha = 0.1
         params.dyntype = {"rayleigh_statics": "statics",
                           "rayleigh_ost": "onesteptheta"}[change]
-    elif change == "chebyshev":
+    elif change.endswith("chebyshev"):  # under CG, GMRES and BiCGStab
         params.precond = "chebyshev"
-    elif change == "gmres":
-        params.newton.lin_method = "gmres"
+        params.newton.lin_method = change.split("_")[0] if "_" in change \
+            else "cg"
+    elif change == "dyntype_unknown":
+        params.dyntype = "adamsbashforth2"
     else:
-        params.tech = "fbar"
+        params.mass = "diagonal"
     with pytest.raises(NotImplementedError):
         f = ps.SolidField(disc, {1: make_material(dict(MAT))}, params,
                           device="cpu")

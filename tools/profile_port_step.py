@@ -8,7 +8,9 @@ Builds the flagship problem of chip_smoke.py on one of its meshes,
 flagship, jittered, permuted or tet4 (default n=72, float32, flagship; the
 permuted box's full size is n=56; ``tet4`` is the permuted box split into
 6 tet4 per hex, chip_smoke.py phase 9 (c); ``explicit`` is the flagship
-box under explicit central differences, chip_smoke.py phase 10 (d)), runs
+box under explicit central differences, chip_smoke.py phase 10 (d);
+``fbar`` and ``eas`` the permuted box under F-bar with GMRES(50) and
+under EAS with CG, chip_smoke.py phase 11 (b), (c)), runs
 two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
@@ -42,7 +44,10 @@ def main():
     n_steps = int(sys.argv[2]) if len(sys.argv) > 2 else 2
     mesh = sys.argv[3] if len(sys.argv) > 3 else "flagship"
     meshes = {**{m: (m, "hex8") for m in cs.FULL_N},
-              "tet4": ("permuted", "tet4")}
+              "tet4": ("permuted", "tet4"),
+              **{name.split("_")[0]: ("permuted", "hex8", changes, newton)
+                 for name, changes, newton, _ in cs.TECH_PATHS
+                 if name.endswith("_permuted")}}
     if mesh == "explicit":
         f, step, _, dt = cs.explicit_problem(n)
         print(f"explicit n={n}: dt {dt:.4e}")
