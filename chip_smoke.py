@@ -5,7 +5,11 @@ Usage, from the repository root on a machine with a CUDA device and nvcc:
 
     python3 chip_smoke.py
 
-Phases (each prints its lines; any failure raises and the exit code is 1):
+Phases (each prints its lines, and ``[phase] <name>: start`` before them;
+a phase that raises prints ``[phase] <name>: FAILED ...`` with the
+exception, and the exit code is 1; run without the repository around it,
+the script prints ``[phase] import: FAILED ...`` and exits 1 before any
+phase):
 
 1. environment: GPU name and power limit, torch/CUDA versions, nvcc, triton;
 2. build: compiles both sources of fourc_tpu_torch/csrc with nvcc for
@@ -95,7 +99,37 @@ Phases (each prints its lines; any failure raises and the exit code is 1):
        mass, mass-only) and none of B1-B5 or B7, the F-bar force and
        tangent timed by CUDA events;
    (c) ``eas_permuted``: the same with tech eas_mild under CG;
-   (d) one step of (b) under BiCGStab.
+   (d) one step of (b) under BiCGStab;
+12. Gauss-point history, the Ogden and Sussman-Bathe summands,
+   spring-dashpots and the volume constraint:
+   (a) decks/solid_ogden_uniaxial.yaml, volume_constraint.yaml,
+       viscoelastic_relaxation.yaml, solid_j2_cyclic.yaml,
+       plasticity_lognh_torsion.yaml and spring_dashpot_settling.yaml with
+       its viscosity zeroed (written under build/) through ``app.main.main``
+       on the card in float64 (3/3 each, 6/6), then GPU against CPU through
+       ``driver.run`` as phase 10 (a), the history of every block compared
+       after every step too; the spring deck as written is refused, naming
+       the dashpot;
+   (b) ``visco_permuted``: phase 7's problem (bench.py's permuted box at
+       n=56) with its Neo-Hooke wrapped in viscoelasthyper (taus [1.0],
+       betas [0.5]), gen-alpha, CG with phase 7's SA-AMG (shared), float32,
+       1 warm-up and 2 timed steps, B6 launched (the mass, mass-only) and
+       none of B1-B5 or B7, the force and tangent timed by CUDA events and
+       the history's bytes printed;
+   (c) ``j2_permuted``: the same box under kinem linear and
+       plasticlinelast (isohard 500, kinhard 300), its yield stress half
+       the largest von Mises stress of an elastic first step (printed),
+       CG, Newton with line search and up to 25 iterations, 1 + 2 steps,
+       the share of Gauss points with kappa > 0 strictly between 0 and
+       100%;
+   (d) ``lognh_permuted``: the same under plasticnlnlogneohooke (isohard
+       500, the yield stress chosen alike), GMRES(50), the same Newton,
+       1 + 1 steps.
+
+The nodal stresses of a deck with ``stress_*`` anchors (the converted
+F-bar deck of phase 11) are compared GPU against CPU after every step like
+d, v and a; an anchor at float64's noise floor that the card misses must
+lie within its tolerance + NOISE_BOUND of 4C's value.
 
 Each path's launch counts are set to 0 just before it and read just after.
 The last three lines are a JSON object with per-kernel results (launches on
@@ -106,6 +140,7 @@ name/power-limit line and ``{"ok": true, "device": ...}``.
 import contextlib
 import io
 import json
+import pathlib
 import re
 import shutil
 import subprocess
@@ -117,17 +152,23 @@ import numpy as np
 import torch
 import yaml
 
-from fourc_tpu_torch import materials
-from fourc_tpu_torch.app import main as app_main
-from fourc_tpu_torch.core import cells, conditions, functions, gridgen
-from fourc_tpu_torch.materials.elastic import lame
-from fourc_tpu_torch.ops import cuda_build
-from fourc_tpu_torch.ops import lattice as lat
-from fourc_tpu_torch.ops import lattice_kernels as lk
-from fourc_tpu_torch.ops import solid as sops
-from fourc_tpu_torch.ops import solid_kernels as sk
-from fourc_tpu_torch.physics import driver
-from fourc_tpu_torch.physics import solid as ps
+try:
+    from fourc_tpu_torch import materials
+    from fourc_tpu_torch.app import main as app_main
+    from fourc_tpu_torch.core import cells, conditions, functions, gridgen
+    from fourc_tpu_torch.materials.elastic import lame
+    from fourc_tpu_torch.ops import common as gm
+    from fourc_tpu_torch.ops import cuda_build
+    from fourc_tpu_torch.ops import lattice as lat
+    from fourc_tpu_torch.ops import lattice_kernels as lk
+    from fourc_tpu_torch.ops import solid as sops
+    from fourc_tpu_torch.ops import solid_kernels as sk
+    from fourc_tpu_torch.physics import driver
+    from fourc_tpu_torch.physics import solid as ps
+except ImportError as exc:  # the script without the repository around it
+    print(f"[phase] import: FAILED: {type(exc).__name__}: {exc} (run "
+          f"chip_smoke.py from the root of a checkout)", flush=True)
+    sys.exit(1)
 
 F64_TOL, F32_TOL, STEP_TOL = 1e-10, 1e-4, 1e-9
 # kernel -> (number, JSON name, source, TPU kernel it replaces, its path)
@@ -619,19 +660,22 @@ def phase_kernels():
     return results
 
 
+NEOHOOKE = {"type": "neohooke", "youngs": 1.0e4, "nue": 0.3, "density": 1.0}
+
+
 def build_problem(n, device, dtype, mesh="flagship", cell="hex8",
-                  changes=None, newton=None):
+                  changes=None, newton=None, material=None):
     """bench.py's problem (f32 Newton settings for float32) on one of its
     meshes: ``flagship`` (the uniform box), ``jittered`` (its
     ``unstructured_1M`` variant) or ``permuted`` (``permuted_500k``, whose
     ``gmg`` falls back to SA-AMG), of hex8 or (BENCH_CELL=tet4) tet4
     cells; ``changes`` sets SolidParams fields (e.g. RAYLEIGH, bench.py's
     BENCH_RAYLEIGH=1, another integrator or a tech), ``newton`` its
-    NewtonParams fields (e.g. the linear solver)."""
+    NewtonParams fields (e.g. the linear solver), ``material`` the law's
+    deck spec in place of bench.py's Neo-Hooke."""
     disc = make_mesh(n, mesh, cell)
     ndof = disc.n_nodes * 3
-    mat = materials.make_material({"type": "neohooke", "youngs": 1.0e4,
-                                   "nue": 0.3, "density": 1.0})
+    mat = materials.make_material(dict(material or NEOHOOKE))
     params = ps.SolidParams(kinem="nonlinear", dyntype="genalpha",
                             genalpha=ps.GenAlphaParams(rho_inf=0.9),
                             precond="gmg", predictor="constdis")
@@ -734,7 +778,7 @@ def _share_amg(f, key):
 
 def phase_main_path(name, n_steps=5, mesh=None, cell="hex8", n=None,
                     after=None, changes=None, path=None, newton=None,
-                    kernels=None):
+                    kernels=None, material=None, prepare=None):
     """One path at full size (phases 5-7; the tet4 path of phase 9 (c) is
     ``name`` "tet4" on the ``permuted`` mesh, phase 10's are the flagship
     box with ``changes`` to its SolidParams, phase 11's the permuted box
@@ -743,17 +787,22 @@ def phase_main_path(name, n_steps=5, mesh=None, cell="hex8", n=None,
     max|d|, ms/step.  The kernels of ``path`` (default ``name``), or the
     set ``kernels``, must be launched and no other.  ``after(f, state)``
     runs after the launches are read.  With ``n_steps`` 0 only the
-    warm-up step runs."""
+    warm-up step runs.  ``material`` is the law's spec (build_problem);
+    ``prepare(f)`` runs on the built field before the launches are counted
+    (phase 12's elastic step that sets the yield stress)."""
     n = n or FULL_N[name]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     f = build_problem(n, "cuda", torch.float32, mesh or name, cell, changes,
-                      newton)
+                      newton, material)
     torch.cuda.synchronize()
     kind = ("general topology" if f.lattice is None else
             "general geometry" if f.x is not None else "uniform geometry")
     log(name, f"n={n}: {f.ndof} dofs, {kind}, field built in "
               f"{time.perf_counter() - t0:.1f} s")
+    if prepare is not None:
+        _share_amg(f, (n, mesh or name, cell))
+        prepare(f)
     reset_launches()
     t0 = time.perf_counter()
     state = ps.compute_initial_state(f, ps.init_state(f))
@@ -1105,69 +1154,123 @@ def phase_integrators():
                            "than one B1 per step")
 
 
+# anchors at float64's noise floor (the converted F-bar deck's nodal
+# stresses): one that the card misses must lie within its tolerance plus
+# this of 4C's value.  tools/fbar_anchor_noise.py spreads the CPU's
+# stress_xx of node 4 around +1.08e-12 from 4C with std 9.2e-14 under half
+# an ulp of noise in the internal force; the card landed +1.07e-12.
+NOISE_BOUND = 1e-12
+_ANCHOR = re.compile(r"^\[FAIL\] \S+ node \d+ (\S+): actual=(\S+) "
+                     r"expected=(\S+) tol=(\S+)$")
+
+
+def _anchors_missed_within_noise(path, out, prefix):
+    """The lines of the anchors the card missed, if each is a ``prefix``
+    quantity within its tolerance + NOISE_BOUND of 4C's value; else
+    raise."""
+    missed = [line for line in out.splitlines() if line.startswith("[FAIL]")]
+    for line in missed:
+        m = _ANCHOR.match(line)
+        if not (m and m.group(1).startswith(prefix)):
+            raise RuntimeError(f"{path}: anchor missed on the card: {line}")
+        actual, expected, tol = (float(m.group(k)) for k in (2, 3, 4))
+        if not abs(actual - expected) <= tol + NOISE_BOUND:
+            raise RuntimeError(f"{path}: {line} lies beyond the tolerance + "
+                               f"{NOISE_BOUND:g}")
+    return missed
+
+
+def _deck_path(src, label):
+    """A deck dict written under build/ (git-ignored) for the CLI; a path as
+    it is."""
+    if isinstance(src, str):
+        return src
+    out = pathlib.Path("build") / "decks" / f"{label}.yaml"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(yaml.safe_dump(src))
+    return str(out)
+
+
 def _decks_on_the_card(label, decks):
-    """``decks``: path -> (the kernels its run launches on the card, its
-    number of anchors[, the prefix of quantities whose anchors sit at
-    float64's noise floor]).  Each deck through the CLI on the card in
-    float64 (every anchor met), then through ``driver.run`` on the card and
-    on the CPU: d, v and a after every step within DECK_TOL of their
-    largest entry over the run, the counts and launches printed and
-    checked, an adaptive deck's accepted dt sequence the CPU's.
+    """``decks``: path (or label of a deck dict, ``(dict, kernels,
+    anchors)``) -> (the kernels its run launches on the card, its number of
+    anchors[, the prefix of quantities whose anchors sit at float64's noise
+    floor]).  Each deck through the CLI on the card in float64 (every
+    anchor met), then through ``driver.run`` on the card and on the CPU:
+    d, v and a after every step within DECK_TOL of their largest entry
+    over the run, and so the history of every block and, for a deck with
+    ``stress_*`` anchors, the nodal stresses; the counts and launches
+    printed and checked, an adaptive deck's accepted dt sequence the
+    CPU's.
 
     A deck with a noise-floor prefix may miss anchors of those quantities
-    on the card, and only those, if the CLI on the CPU meets every anchor:
+    on the card, and only those, if the CLI on the CPU meets every anchor
+    and each miss lies within its tolerance + NOISE_BOUND of 4C's value:
     the 4C-converted F-bar deck's nodal stresses (1e-12 absolute on 24.66)
     move by about 1e-13 for half an ulp of rounding in the internal force
     (tools/fbar_anchor_noise.py: mean 1.08e-12 from 4C, 3 of 12 perturbed
     CPU runs within the tolerance), which is what a card's rounding
     differs by.  Each such miss is printed."""
-    for path, (kernels, n_tests, *noisy) in decks.items():
+    for path, spec in decks.items():
+        src = path
+        if isinstance(spec[0], dict):
+            src, spec = spec[0], spec[1:]
+        kernels, n_tests, *noisy = spec
+        deck_file = _deck_path(src, path)
         reset_launches()
-        rc, out = _cli([path, "--device", "cuda"])
+        rc, out = _cli([deck_file, "--device", "cuda"])
         counts = launches()
         if rc != 0 or f"result tests: {n_tests}/{n_tests} passed" not in out:
-            missed = [line for line in out.splitlines()
-                      if line.startswith("[FAIL]")]
-            if not (noisy and missed and all(f" {noisy[0]}" in line
-                                              for line in missed)):
+            if not noisy:
                 raise RuntimeError(f"{path}: rc {rc}, RESULT DESCRIPTION "
                                    f"not met on the card")
-            rc_cpu, out_cpu = _cli([path, "--device", "cpu"])
+            missed = _anchors_missed_within_noise(path, out, noisy[0])
+            rc_cpu, out_cpu = _cli([deck_file, "--device", "cpu"])
             if (rc_cpu != 0 or f"result tests: {n_tests}/{n_tests} passed"
                     not in out_cpu):
                 raise RuntimeError(f"{path}: RESULT DESCRIPTION not met on "
                                    f"the card nor on the CPU")
             log(label, f"{path}: on the card {len(missed)} of {n_tests} "
                        f"anchors missed, all {noisy[0]}* at float64's noise "
-                       f"floor; the CPU meets all {n_tests}: "
+                       f"floor, each within its tolerance + "
+                       f"{NOISE_BOUND:g}; the CPU meets all {n_tests}: "
                        + "; ".join(missed))
-        runs, agg = {}, {}
+        runs, agg, fields = {}, {}, {}
         for device in ("cuda", "cpu"):
             runs[device] = states = []
-            res = driver.run(path, device=device, callbacks=[
+            res = driver.run(src, device=device, callbacks=[
                 lambda _, st, __, out=states: out.append(
-                    {k: st[k].cpu().clone() for k in ("d", "v", "a")})])
+                    {**{k: st[k].cpu().clone() for k in ("d", "v", "a")},
+                     **{f"hist {key}": h.cpu().clone()
+                        for key, h in st.get("hist", {}).items()}})])
             agg[device] = res.stats["structure"]
+            fields[device] = res.fields["structure"].f
         if len(runs["cuda"]) != len(runs["cpu"]):
             raise RuntimeError(f"{path}: {len(runs['cuda'])} steps on the "
                                f"card, {len(runs['cpu'])} on the CPU")
-        errs = []
-        for k in ("d", "v", "a"):  # v = a = 0 under statics: absolute
+        if any(str(t.get("quantity", "")).startswith("stress_")
+               for t in res.deck.result_tests):
+            for device, f in fields.items():
+                for st in runs[device]:
+                    st["stress"] = f.nodal_stresses(
+                        st["d"].to(f.device)).cpu()
+        errs = {}
+        for k in runs["cpu"][0]:  # v = a = 0 under statics: absolute
             diff = max(float((g[k] - c[k]).abs().max())
                        for g, c in zip(runs["cuda"], runs["cpu"]))
             scale = max(float(c[k].abs().max()) for c in runs["cpu"])
-            errs.append(diff / scale if scale else diff)
+            errs[k] = diff / scale if scale else diff
         launched = {KERNELS[k][0]: c for k, c in counts.items() if c}
         log(label, f"{path} float64: newton "
                    f"{agg['cuda']['newton_iters']}, linear solver "
                    f"{agg['cuda']['lin_iters']} on the card "
                    f"(CPU: {agg['cpu']['newton_iters']}, "
                    f"{agg['cpu']['lin_iters']}); GPU vs CPU over "
-                   f"{len(runs['cpu'])} steps, d / v / a max rel err "
-                   f"{errs[0]:.3e} / {errs[1]:.3e} / {errs[2]:.3e} "
-                   f"(tol {DECK_TOL:g}); launches "
+                   f"{len(runs['cpu'])} steps, max rel err "
+                   + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                   + f" (tol {DECK_TOL:g}); launches "
                    f"{launched or 'none of B1-B7'}")
-        if not max(errs) <= DECK_TOL:
+        if not max(errs.values()) <= DECK_TOL:
             raise RuntimeError(f"{path}: GPU run disagrees with the CPU run")
         if {k for k, c in counts.items() if c} != set(kernels):
             raise RuntimeError(f"{path}: launches {counts}")
@@ -1243,17 +1346,179 @@ def tech_paths():
                         after=after if steps else None)
 
 
+# phase 12 (a): deck -> (the kernels its run launches on the card, its
+# anchors); the spring deck with its viscosity zeroed is a dict
+HISTORY_DECKS = {
+    "decks/solid_ogden_uniaxial.yaml": ((), 3),
+    "decks/volume_constraint.yaml": (("force", "tangent"), 3),
+    "decks/viscoelastic_relaxation.yaml": ((), 3),
+    "decks/solid_j2_cyclic.yaml": ((), 3),
+    "decks/plasticity_lognh_torsion.yaml": ((), 3),
+}
+SPRING_DECK = "decks/spring_dashpot_settling.yaml"
+# phase 12 (b)-(d): bench.py's permuted box under a law with history
+VISCO = {"type": "viscoelasthyper", "taus": [1.0], "betas": [0.5],
+         "material": NEOHOOKE}
+J2 = {"type": "plasticlinelast", "youngs": 1.0e4, "nue": 0.3,
+      "yield_stress": None, "isohard": 500.0, "kinhard": 300.0,
+      "density": 1.0}
+LOGNH = {"type": "plasticnlnlogneohooke", "youngs": 1.0e4, "nue": 0.3,
+         "yield_stress": None, "isohard": 500.0, "density": 1.0}
+# (name, law, SolidParams changes, Newton changes, timed steps); the
+# plastic paths with line search and up to 25 Newton iterations, as the
+# plasticity gate decks (maxiter 50 and 40): plain Newton oscillates once
+# the plastic zone spreads (12 iterations of the third J2 step left the
+# residual at 3.8)
+PLASTIC_NEWTON = {"line_search": True, "max_iter": 25}
+HISTORY_PATHS = (("visco_permuted", VISCO, {}, {"lin_method": "cg"}, 2),
+                 ("j2_permuted", J2, {"kinem": "linear"},
+                  {"lin_method": "cg", **PLASTIC_NEWTON}, 2),
+                 ("lognh_permuted", LOGNH, {},
+                  {"lin_method": "gmres", "gmres_restart": 50,
+                   **PLASTIC_NEWTON}, 1))
+
+
+def spring_deck_without_dashpot():
+    """The spring-dashpot deck with its viscosity zeroed: the reference
+    drops the dashpot under one-step-theta, so its anchors are
+    spring-only."""
+    with open(SPRING_DECK) as fh:
+        data = yaml.safe_load(fh)
+    for sp in data["conditions"]["spring_dashpot"]:
+        sp["viscosity"] = [0.0] * len(sp["viscosity"])
+    return data
+
+
+def _von_mises(f, state, dt):
+    """The von Mises stress of the law's stress at every Gauss point of
+    every block, (g, E) each, at the state's displacement and history."""
+    out = []
+    for b in f.blocks:
+        ue = f.dofmap.gather(state["d"], b.key)
+        H = sops._grad(ue.reshape(b.cell.nen, 3, -1), b.G)
+        S, _ = sops._stress(b.material, H, b.kinem,
+                            state["hist"].get(b.key), dt)
+        dev = S - gm.tr3l(S) / 3.0 * gm.eye3l(S)
+        out.append(torch.sqrt(1.5 * (dev * dev).sum(dim=(0, 1))))
+    return out
+
+
+def _set_yield(name):
+    """prepare(f) of phase 12 (c), (d): one elastic step (the yield stress
+    out of reach), then the yield stress half the largest von Mises stress
+    at its Gauss points."""
+    def prepare(f):
+        mat = f.blocks[0].material
+        mat.yield_stress = 1e30
+        state = ps.compute_initial_state(f, ps.init_state(f))
+        state, stats = make_step(f, name)(state)
+        if not stats["converged"]:
+            raise RuntimeError(f"{name}: the elastic step did not converge")
+        vm = max(float(v.max()) for v in _von_mises(f, state, 0.02))
+        mat.yield_stress = 0.5 * vm
+        log(name, f"elastic first step: {stats['iters']} Newton, "
+                  f"{stats['lin_iters']} Krylov; largest von Mises stress "
+                  f"{vm:.6g}, yield stress set to {mat.yield_stress:.6g}")
+    return prepare
+
+
+def _time_history(f, state):
+    """Device ms per call (CUDA events, 5 calls) of the force and the
+    tangent with the mass at the state's displacement and history, on the
+    field and on its block alone."""
+    u, hist, dt = state["d"], state["hist"], 0.02
+    v = torch.where(f.free, torch.randn_like(u), 0.0) * 1e-2
+    blk = f.blocks[0]
+    ue, ve = f.dofmap.gather(u, blk.key), f.dofmap.gather(v, blk.key)
+    h = hist[blk.key]
+    return {"force": _time(lambda: f.internal_force(u, hist, dt), reps=5),
+            "tangent with the mass": _time(
+                lambda: f.tangent(u, v, 9930.0, hist, dt), reps=5),
+            "element force and history alone": _time(
+                lambda: blk.force(ue, h, dt, with_history=True), reps=5),
+            "element tangent alone": _time(
+                lambda: blk.tangent(ue, ve, 9930.0, h=h, dt=dt), reps=5)}
+
+
+def phase_history():
+    """Phase 12: Gauss-point history, the Ogden and Sussman-Bathe summands,
+    spring-dashpots and the volume constraint."""
+    # (a) the decks: anchors on the card, GPU against CPU with the history
+    try:
+        _cli([SPRING_DECK, "--device", "cuda"])
+    except NotImplementedError as exc:
+        if "drops the dashpot" not in str(exc):
+            raise
+        log("history", f"{SPRING_DECK} as written is refused: {exc}")
+    else:
+        raise RuntimeError(f"{SPRING_DECK}: the dashpot under one-step-theta "
+                           f"was not refused")
+    _decks_on_the_card("history", {
+        **HISTORY_DECKS, "spring_dashpot_settling_no_dashpot": (
+            spring_deck_without_dashpot(), ("stencil", "force", "tangent"),
+            6)})
+    history_paths()
+
+
+def history_paths():
+    """Phase 12 (b)-(d): the permuted box at n=56 under the three history
+    laws."""
+    def after(f, state):
+        blk = f.blocks[0]
+        law, h = blk.material.deck_name, state["hist"][blk.key]
+        blocks = [(b.key, b.X.shape[1], b.model) for b in f.blocks]
+        log(law, f"blocks (key, elements, kernel model): {blocks}; history "
+                 f"{tuple(h.shape)} {h.dtype}, {h.numel() * h.element_size()}"
+                 f" bytes")
+        if hasattr(blk.material, "yield_stress"):
+            k = 18 if law == "plasticlinelast" else 6  # kappa, alpha
+            share = float((h[..., k] > 0).double().mean())
+            log(law, f"Gauss points with kappa > 0 after the steps: "
+                     f"{100 * share:.2f}% of {h.shape[0] * h.shape[1]}")
+            if not 0.0 < share < 1.0:
+                raise RuntimeError(f"{law}: yielded share {share} not "
+                                   f"strictly between 0 and 1")
+        log(law, "ms per call (device, CUDA events, float32): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in _time_history(f, state).items()))
+
+    for name, law, changes, newton, steps in HISTORY_PATHS:
+        prepare = _set_yield(name) if "yield_stress" in law else None
+        phase_main_path(name, n_steps=steps, mesh="permuted",
+                        n=FULL_N["permuted"], changes=changes, newton=newton,
+                        material={k: (1e30 if v is None else v)
+                                  for k, v in law.items()},
+                        kernels={"solid_force"}, after=after,
+                        prepare=prepare)
+
+
+def _phase(name, fn, *args):
+    """Run one phase, its name printed as it starts; a phase that raises is
+    named with its exception, and the exception goes on (exit code 1)."""
+    log("phase", f"{name}: start")
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args)
+    except BaseException as exc:
+        log("phase", f"{name}: FAILED after {time.perf_counter() - t0:.1f} "
+                     f"s: {type(exc).__name__}: {exc}")
+        raise
+    log("phase", f"{name}: done in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
-    smi_line = phase_environment()
-    phase_build()
-    results = phase_kernels()
-    phase_correctness()
-    runs = {name: phase_main_path(name) for name in FULL_N}
+    smi_line = _phase("1 environment", phase_environment)
+    _phase("2 build", phase_build)
+    results = _phase("3 kernels", phase_kernels)
+    _phase("4 correctness", phase_correctness)
+    runs = {name: _phase(f"{5 + i} {name} path", phase_main_path, name)
+            for i, name in enumerate(FULL_N)}
     counts = {name: run[0] for name, run in runs.items()}
-    phase_decks(runs["flagship"][1])
-    phase_elements()
-    phase_integrators()
-    phase_techs()
+    _phase("8 decks", phase_decks, runs["flagship"][1])
+    _phase("9 element route", phase_elements)
+    _phase("10 integrators", phase_integrators)
+    _phase("11 element technologies", phase_techs)
+    _phase("12 history, summands, springs, constraint", phase_history)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

@@ -19,6 +19,17 @@ import sys
 _UNPORTED_FLAGS = ("restart", "restart_from", "profile", "debug_nans")
 
 
+def _same(a, b):
+    """Bitwise equality of state entries: tensors, dicts of them (the
+    history), numbers."""
+    import torch
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(v, b[k])
+                                            for k, v in a.items())
+    return torch.equal(a, b) if torch.is_tensor(a) else a == b
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fourc_tpu_torch", description=__doc__)
     p.add_argument("deck", nargs="?", help="input deck (.yaml)")
@@ -77,8 +88,7 @@ def main(argv=None):
             for name, st in result.states.items():
                 other = rg.states[name]
                 same = st.keys() == other.keys() and all(
-                    torch.equal(v, other[k]) if torch.is_tensor(v)
-                    else v == other[k] for k, v in st.items())
+                    _same(v, other[k]) for k, v in st.items())
                 if not same:
                     print(f"[DIFFGROUP] group {g} field {name} "
                           f"differs from group 0")

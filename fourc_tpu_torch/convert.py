@@ -43,10 +43,14 @@ def flat_from_lattice(x):
 
 def state_from_jax(state, pshape):
     """JAX solid state dict -> port state arrays (lattice layout, or flat
-    dof vectors with ``pshape=None``), plus the time and the step counter."""
+    dof vectors with ``pshape=None``), plus the time, the step counter and
+    the Gauss-point history (block key -> (E, g, nh), the same layout in
+    both packages)."""
     out = {k: lattice_from_jax(state[k], pshape) for k in STATE_FIELDS}
     out["t"] = float(np.asarray(state["t"]))
     out["step"] = int(np.asarray(state["step"]))
+    out["hist"] = {key: np.array(h, np.float64)
+                   for key, h in (state.get("hist") or {}).items()}
     return out
 
 

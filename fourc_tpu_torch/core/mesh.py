@@ -264,11 +264,16 @@ class DofMap:
 
     def scatter_add(self, per_block: dict) -> torch.Tensor:
         """Sum element vectors, per_block[key] (nen*ndpn, E), into a global
-        dof vector: each dof gathers its contributions in slot order."""
+        dof vector: each dof gathers its contributions and adds them in slot
+        order, one slot after the other, so that every device rounds alike
+        (a reduction kernel sums in its own order)."""
         total = None
         for key, fe in per_block.items():
             _, inc, w = self._general(key).tables(self.ndpn, fe.device)
             contrib = torch.where(w, fe.reshape(-1)[inc], 0.0)
-            part = contrib.sum(dim=1).reshape(-1)
+            part = contrib[:, 0]
+            for s in range(1, contrib.shape[1]):
+                part = part + contrib[:, s]
+            part = part.reshape(-1)
             total = part if total is None else total + part
         return total

@@ -8,8 +8,10 @@ structure problem (``problem``, ``structural_dynamic``, ``solver``, ``io``,
 ``result_description``, ``title``).  Geometry comes from the ``box``
 generator (with ``jitter`` and ``permute``) or from explicit ``nodes``,
 ``elements``, ``node_sets`` and ``face_sets``; conditions are ``dirichlet``,
-``neumann`` and ``body_force``.  Whatever else the reference reads (another field's
-section, another generator, ``exodus``, two generators of one mesh, another
+``neumann``, ``body_force``, ``spring_dashpot`` and ``constraint`` (its
+faces and nodes resolved to the mesh's sets, the rest as written; the
+structure driver refuses the kinds it does not carry).  Whatever else the
+reference reads (another field's section, another generator, ``exodus``, two generators of one mesh, another
 condition kind, a problem type other than structure) raises
 NotImplementedError naming it as not ported.
 
@@ -21,7 +23,8 @@ Deck layout (one YAML document):
   materials:          {id: {type: ..., params...}}           ("MATERIALS")
   functions:          {id: expr | [expr per component]}      ("FUNCT1..")
   geometry:           generator | explicit nodes/elements    ("NODE COORDS"/"STRUCTURE ELEMENTS")
-  conditions:         dirichlet/neumann/body_force           ("DESIGN ... CONDITIONS")
+  conditions:         dirichlet/neumann/body_force/
+                      spring_dashpot/constraint              ("DESIGN ... CONDITIONS")
   result_description: list of nodal checks                   ("RESULT DESCRIPTION")
 """
 
@@ -271,8 +274,8 @@ UNPORTED_GENERATORS = ("line", "sheet", "kl_patch", "nurbs_patch", "rectangle")
 UNPORTED_CONDITIONS = (
     "fsi_interface", "point_neumann", "ale_dirichlet",
     "bts_surface_contact", "particle_wall", "windkessel_outflow", "meshtying",
-    "beam_contact", "constraint", "periodic", "spring_dashpot",
-    "embedded_mesh", "electrode_kinetics", "contact",
+    "beam_contact", "periodic", "embedded_mesh", "electrode_kinetics",
+    "contact",
 )
 
 
@@ -453,9 +456,10 @@ def _build_conditions(conds: dict, discs: dict) -> dict:
         for item in items:
             if key in UNPORTED_CONDITIONS:
                 raise NotImplementedError(
-                    f"conditions.{key} is not ported (dirichlet, neumann and "
-                    f"body_force are)")
-            if key not in ("dirichlet", "neumann", "body_force"):
+                    f"conditions.{key} is not ported (dirichlet, neumann, "
+                    f"body_force, spring_dashpot and constraint are)")
+            if key not in ("dirichlet", "neumann", "body_force",
+                           "spring_dashpot", "constraint"):
                 raise ValueError(f"unknown condition kind {key!r}")
             item = dict(item)
             fieldname = item.pop("field", None) or next(iter(discs))
@@ -472,6 +476,18 @@ def _build_conditions(conds: dict, discs: dict) -> dict:
             elif key == "body_force":
                 f["body_force"].append(BodyForce(val=item["val"],
                                                  funct=item.get("funct")))
+            elif key == "spring_dashpot":
+                f.setdefault("spring_dashpot", []).append({
+                    "nodes": _resolve_nodes(disc, item["nodes"]),
+                    "stiffness": item.get("stiffness", ()),
+                    "viscosity": item.get("viscosity", ()),
+                })
+            elif key == "constraint":
+                if "faces" in item:
+                    item["faces"] = _resolve_faces(disc, item["faces"])
+                if "nodes" in item:
+                    item["nodes"] = _resolve_nodes(disc, item["nodes"])
+                f.setdefault("constraint", []).append(item)
             else:
                 f["neumann"].append(
                     NeumannBC(

@@ -194,12 +194,16 @@ def bicgstab(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
 def direct(A, b, batched=False, **_):
     """Dense direct solve (LU with partial pivoting), for small systems: the
     operator is densified by probing with the identity's columns, then
-    solved with ``torch.linalg.solve``.  With ``batched`` (an operator of
-    plain PyTorch, which ``torch.func.vmap`` can batch: every operator on
-    the CPU, where the kernels' twins run) the n probes go through it at
-    once, as the reference vmaps them; else (a kernel wrapper takes no
-    batch) one application each.  Returns iters = 1, as the reference
-    does."""
+    solved with ``torch.linalg.solve`` on the host (LAPACK), whatever the
+    device: a card's LU rounds otherwise than the CPU's, and a Newton loop
+    that stops at its tolerance (the plasticity decks converge linearly
+    there) carries that rounding into the answer at the tolerance's size;
+    solved alike, the card's run rounds as the CPU's.  With ``batched`` (an
+    operator of plain PyTorch, which ``torch.func.vmap`` can batch: every
+    operator on the CPU, where the kernels' twins run) the n probes go
+    through it at once, as the reference vmaps them; else (a kernel wrapper
+    takes no batch) one application each.  Returns iters = 1, as the
+    reference does."""
     n = b.numel()
     eye = torch.eye(n, dtype=b.dtype, device=b.device)
     if batched:
@@ -208,7 +212,7 @@ def direct(A, b, batched=False, **_):
     else:
         Ad = torch.stack([A(eye[k].reshape(b.shape)).reshape(-1)
                           for k in range(n)], dim=1)
-    x = torch.linalg.solve(Ad, b.reshape(-1))
+    x = torch.linalg.solve(Ad.cpu(), b.reshape(-1).cpu()).to(b.device)
     rn = float(torch.linalg.vector_norm(b.reshape(-1) - Ad @ x))
     return KrylovResult(x=x.reshape(b.shape), iters=1, resnorm=rn,
                         converged=True)

@@ -1,12 +1,12 @@
 """Modular hyperelasticity: ElastHyper, a sum of strain-energy summands.
 
 Counterpart of fourc_tpu/materials/elasthyper.py for the summands the
-ported decks use: CoupNeoHooke, CoupLogNeoHooke and CoupAnisoExpo (with
-GOH dispersion).  The reference differentiates the summed energy psi(C)
-with AD; here each summand gives its PK2 stress in closed form, in the
-cancellation-free form of NeoHooke.pk2_from_E, and the element route
-(ops/solid.py) takes the stress's directional derivative with forward-mode
-AD.
+ported decks use: CoupNeoHooke, CoupLogNeoHooke, CoupAnisoExpo (with
+GOH dispersion), IsoOgden and VolSussmanBathe.  The reference
+differentiates the summed energy psi(C) with AD; here each summand gives
+its PK2 stress in closed form, in the cancellation-free form of
+NeoHooke.pk2_from_E, and the element route (ops/solid.py) takes the
+stress's directional derivative with forward-mode AD.
 
 Deck syntax (as the reference's):
   {type: elasthyper, density: 0.1, summands: [
@@ -140,6 +140,96 @@ class CoupAnisoExpo:
         return (2.0 * self.k1) * (w * x * torch.exp(self.k2 * x * x)) * Hs
 
 
+# the reference's eigenvalue jitter diag(1, 2, 3) 1e-10 (part of its energy:
+# it splits coincident principal stretches)
+EIG_JITTER = (1e-10, 2e-10, 3e-10)
+
+
+def _pow_dd(a, b, p):
+    """First divided difference of x^p, (a^p - b^p) / (a - b), with its
+    limit p a^(p-1) at a = b; for a != b formed as
+    b^p expm1(p log1p((a - b) / b)) / (a - b), accurate to a few ulps however
+    close a and b are (a - b is exact there)."""
+    d = a - b
+    tie = d == 0
+    dd = torch.where(tie, 1.0, d)
+    return torch.where(tie, p * a ** (p - 1),
+                       b ** p * torch.expm1(p * torch.log1p(d / b)) / dd)
+
+
+def spd_power(A, p):
+    """(A^p, tr A^(p+1)) of a batch of symmetric positive definite matrices
+    A (3, 3, ...), to first order exact: the values from the spectrum of A
+    (``torch.linalg.eigh``, detached), the forward-mode derivative by the
+    Daleckii-Krein formula dA^p = Q (Phi o Q^T dA Q) Q^T, Phi_ij the first
+    divided difference of x^p at the eigenvalues mu_i, mu_j (``_pow_dd``,
+    p mu^(p-1) at a tie), and d tr A^(p+1) = (p + 1) tr(A^p dA).  Nothing
+    divides by an eigenvalue gap, so the derivative stays finite and
+    accurate at coincident eigenvalues, where one taken through the
+    eigenvectors of ``eigh`` does not.  The second derivative is not
+    carried (the spectrum is a constant of the derivative)."""
+    batch = A.shape[2:]
+    Ab = A.reshape(3, 3, -1).permute(2, 0, 1)  # (M, 3, 3)
+    Ad = Ab.detach()
+    mu, Q = torch.linalg.eigh(Ad)  # ascending, (M, 3), (M, 3, 3)
+    Phi = _pow_dd(mu[:, :, None], mu[:, None, :], p)  # (M, 3, 3)
+    dB = Q.mT @ (Ab - Ad) @ Q  # zero, carries the derivative
+    P = Q @ (torch.diag_embed(mu ** p) + Phi * dB) @ Q.mT
+    tr = (mu ** (p + 1)).sum(-1) + (p + 1) * (mu ** p * torch.diagonal(
+        dB, dim1=1, dim2=2)).sum(-1)
+    return (P.permute(1, 2, 0).reshape((3, 3) + batch),
+            tr.reshape(batch))
+
+
+@register_summand("isoogden")
+@dataclass
+class IsoOgden:
+    """psi = 2 mu / alpha^2 (sum_i lbar_i^alpha - 3), lbar_i = lambda_i
+    J^(-1/3), the principal stretches lambda_i^2 the eigenvalues mu_i of
+    C~ = C + diag(1, 2, 3) 1e-10 (the reference's jitter) and J = det(C)^(1/2):
+    S = 2 dpsi/dC = (2 mu / alpha) J^(-alpha/3)
+        (C~^(alpha/2 - 1) - tr(C~^(alpha/2)) C^-1 / 3).
+    The matrix power comes from ``spd_power``: exact to first order, so that
+    the element route's forward-mode tangent is finite and accurate at
+    coincident stretches (every Gauss point of the undeformed mesh, and the
+    lateral stretches of uniaxial tension).  Its second derivative is not
+    carried: the port refuses the summand where one is taken (EAS's
+    tangent, stiffness-proportional damping)."""
+
+    mue: float
+    alpha: float = 2.0
+    first_order_only = True
+
+    def pk2_from_E(self, E):
+        a = self.alpha
+        A = 2.0 * E
+        eye = gm.eye3l(A)
+        jit = torch.as_tensor(np.diag(EIG_JITTER), dtype=E.dtype,
+                              device=E.device).reshape(
+            (3, 3) + (1,) * (E.dim() - 2))
+        P, tr = spd_power(A + eye + jit, 0.5 * a - 1.0)
+        dm1 = _detC_m1(A)
+        Jfac = torch.exp((-a / 6.0) * torch.log1p(dm1))  # J^(-alpha/3)
+        Cinv = gm.inv3l(A + eye, 1.0 + dm1)
+        return (2.0 * self.mue / a) * Jfac * (P - (tr / 3.0) * Cinv)
+
+
+@register_summand("volsussmanbathe")
+@dataclass
+class VolSussmanBathe:
+    """psi = kappa/2 (J - 1)^2: S = kappa (J - 1) J C^-1, with
+    J - 1 = expm1(log1p(det C - 1) / 2) (no cancellation)."""
+
+    kappa: float
+
+    def pk2_from_E(self, E):
+        A = 2.0 * E
+        dm1 = _detC_m1(A)
+        Jm1 = torch.expm1(0.5 * torch.log1p(dm1))
+        Cinv = gm.inv3l(A + gm.eye3l(A), 1.0 + dm1)
+        return (self.kappa * Jm1 * (1.0 + Jm1)) * Cinv
+
+
 @register_material("elasthyper")
 @dataclass
 class ElastHyper(Material):
@@ -160,6 +250,12 @@ class ElastHyper(Material):
                     f"{sorted(SUMMAND_REGISTRY)}")
             summands.append(SUMMAND_REGISTRY[typ](**spec))
         return cls(summands=summands, **params)
+
+    @property
+    def first_order_only(self):
+        """A summand's stress is exact to first order only (IsoOgden)."""
+        return any(getattr(s, "first_order_only", False)
+                   for s in self.summands)
 
     def pk2_from_E(self, E):
         S = self.summands[0].pk2_from_E(E)

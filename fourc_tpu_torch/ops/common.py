@@ -96,3 +96,28 @@ def tmatmul3l(a, b):
     """a^T b over the leading axes of two (3, 3, ...) tensors."""
     return a[0][:, None] * b[0][None] + a[1][:, None] * b[1][None] \
         + a[2][:, None] * b[2][None]
+
+
+def sqrt_rn(x):
+    """The correctly rounded square root of x > 0, the same bits on every
+    device: torch.sqrt's value (a card's may lie one ulp off the CPU's)
+    moved by at most one ulp to the neighbour that brackets sqrt(x), decided
+    with exact products (Veltkamp's split, x - s^2 without cancellation).
+    Its forward derivative, t / (2 s) at the corrected s, is the same bits
+    on every device too; its second derivative is torch.sqrt's."""
+    s0 = torch.sqrt(x)
+    s, xd = s0.detach(), x.detach()
+    p = s * s
+    c = s * 134217729.0  # 2^27 + 1
+    hi = c - (c - s)
+    lo = s - hi
+    r = (xd - p) - (((hi * hi - p) + 2.0 * hi * lo) + lo * lo)  # x - s^2
+    up = torch.nextafter(s, torch.full_like(s, float("inf")))
+    dn = torch.nextafter(s, torch.zeros_like(s))
+    hu, hd = 0.5 * (up - s), 0.5 * (s - dn)  # half ulps above and below
+    sc = torch.where(r > 2.0 * s * hu + hu * hu, up,
+                     torch.where(r < hd * hd - 2.0 * s * hd, dn, s))
+    # value sc; derivative t / (y + sc) = t / (2 sc), as y's value is sc;
+    # second derivative -y' / (2 sc^2), torch.sqrt's
+    y = s0 + (sc - s)
+    return sc + (x - xd) / (y + sc)

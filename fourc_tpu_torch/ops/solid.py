@@ -23,8 +23,9 @@ a, one column per element.
 - ``element_force`` and ``element_tangent``: the element route, the
   reference's ``_internal_force_einsum`` for 3D nonlinear or linear
   kinematics and its ``jax.jvp``, for any ported cell and any material
-  with a ``pk2_from_E`` (the blocks no kernel carries: tet4, wedge6,
-  ElastHyper, and every block under ``kinem`` linear).
+  with a ``pk2_from_E`` or Gauss-point history (the blocks no kernel
+  carries: tet4, wedge6, ElastHyper, the history laws, and every block
+  under ``kinem`` linear).
   The reference computes these blocks in XLA, not in a Pallas kernel, so
   this plain PyTorch route is their port on every device.  The geometry
   (``element_geometry``) is computed once per mesh; the tangent
@@ -248,48 +249,81 @@ def _sym(H):
     return 0.5 * (H + H.transpose(0, 1))
 
 
+def _stress(material, H, kinem, history=None, dt=None):
+    """The stress of the element route at the displacement gradient H
+    (3, 3, g, E) and the new history: the reference's ``_gp_stress``.
+    Nonlinear kinematics: S at the Green-Lagrange strain E (``pk2_from_E``;
+    a history law's ``evaluate`` at C = 2E + I); linear: the stress at
+    eps = sym H (``pk2_from_E``, or a history law's ``evaluate_small``).
+    ``history`` (E, g, nh) is the block's, as the reference keeps it; the
+    new history comes back in that layout (None without history)."""
+    if history is None:
+        arg = _sym(H) if kinem == "linear" else _green_lagrange(H)
+        return material.pk2_from_E(arg), None
+    h = history.permute(2, 1, 0)  # (nh, g, E)
+    if kinem == "linear":
+        S, h_new = material.evaluate_small(_sym(H), h, dt)
+    else:
+        Egl = _green_lagrange(H)
+        S, h_new = material.evaluate(2.0 * Egl + gm.eye3l(Egl), h, dt)
+    return S, h_new.permute(2, 1, 0)
+
+
 def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True,
-                  kinem="nonlinear"):
+                  kinem="nonlinear", history=None, dt=None,
+                  with_history=False):
     """Total-Lagrangian internal force f = sum_g wdet_g P(F_g) G_g of an
     element batch (when ``stiff``) plus ``mcoef * sum_g wdet_g N N^T u``
     (the consistent mass, when mcoef != 0; N (g, nen) is then required):
     u (nen*3, E) -> (nen*3, E).  With ``kinem`` "linear" the stress is the
     law's at the small strain, sigma = S(eps), eps = sym grad u (the
     reference's ``stress_small``: exact for SVK, nonlinear in eps for
-    Neo-Hooke), and f = sum_g wdet_g sigma G_g."""
+    Neo-Hooke), and f = sum_g wdet_g sigma G_g.  A law with history takes
+    the block's ``history`` (E, g, nh) and ``dt`` (``_stress``); with
+    ``with_history`` the result is (f, the new history)."""
     nen, _, _, E = G.shape
     ut = u.reshape(nen, 3, E)
     out = torch.zeros_like(ut)
+    h_new = None
     if stiff:
         H = _grad(ut, G)
-        if kinem == "linear":
-            P = material.pk2_from_E(_sym(H))
-        else:
-            S = material.pk2_from_E(_green_lagrange(H))
-            P = gm.matmul3l(H + gm.eye3l(H), S)
+        S, h_new = _stress(material, H, kinem, history, dt)
+        P = S if kinem == "linear" else gm.matmul3l(H + gm.eye3l(H), S)
         out = out + _integrate(P * wdet, G)
     if mcoef:
         out = out + mcoef * _mass(wdet, N, ut)
-    return out.reshape(nen * 3, E)
+    out = out.reshape(nen * 3, E)
+    return (out, h_new) if with_history else out
 
 
 def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None,
-                    kinem="nonlinear"):
+                    kinem="nonlinear", history=None, dt=None):
     """Directional derivative of ``element_force`` along v plus
     ``mcoef * sum_g wdet_g N N^T v``: with dH = grad v and F = I + H,
     dE = (dH^T F + F^T dH) / 2, dS = the stress's derivative along dE
-    (forward-mode AD of ``pk2_from_E``) and dP = dH S + F dS; with
-    ``kinem`` "linear" dP = the stress's derivative at eps along sym dH."""
+    (forward-mode AD of ``pk2_from_E``, or of a history law's return map
+    at the old history, as the reference's ``jax.jvp``) and
+    dP = dH S + F dS; with ``kinem`` "linear" dP = the stress's derivative
+    at eps along sym dH."""
     nen, _, _, E = G.shape
     ut, vt = u.reshape(nen, 3, E), v.reshape(nen, 3, E)
     H, dH = _grad(ut, G), _grad(vt, G)
+    if history is None:
+        law = material.pk2_from_E
+    else:
+        h = history.permute(2, 1, 0)
+        if kinem == "linear":
+            def law(e):
+                return material.evaluate_small(e, h, dt)[0]
+        else:
+            def law(e):
+                return material.evaluate(2.0 * e + gm.eye3l(e), h, dt)[0]
     if kinem == "linear":
-        _, dP = torch.func.jvp(material.pk2_from_E, (_sym(H),), (_sym(dH),))
+        _, dP = torch.func.jvp(law, (_sym(H),), (_sym(dH),))
     else:
         F = H + gm.eye3l(H)
         FtdH = gm.tmatmul3l(F, dH)
-        S, dS = torch.func.jvp(material.pk2_from_E, (_green_lagrange(H),),
-                               (_sym(FtdH),))
+        S, dS = torch.func.jvp(law, (_green_lagrange(H),), (_sym(FtdH),))
         dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
     out = _integrate(dP * wdet, G)
     if mcoef:

@@ -2,10 +2,13 @@
 
 Counterpart of the subset of fourc_tpu/physics/solid.py that the ported
 problems run: hex8, tet4 and wedge6 blocks of any law with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, the element
-technologies F-bar and EAS9 "mild", consistent or lumped mass, Rayleigh
-damping under gen-alpha, Dirichlet, surface-traction and body-force
-conditions, nodal stresses; statics, one-step-theta, gen-alpha and
+(Neo-Hooke, SVK, ElastHyper) or with Gauss-point history
+(viscoelasthyper, plasticlinelast, plasticnlnlogneohooke), nonlinear or
+linear kinematics, the element technologies F-bar and EAS9 "mild",
+consistent or lumped mass, Rayleigh damping under gen-alpha, Dirichlet,
+surface-traction and body-force conditions, spring-dashpot supports, the
+penalty volume constraint, nodal stresses; statics, one-step-theta,
+gen-alpha and
 explicit central differences in time, the implicit ones with Newton and CG,
 GMRES or BiCGStab (preconditioned by multigrid, Jacobi or nodal-block
 Jacobi, or not at all) or a direct solve.  Three kinds of mesh, found from
@@ -26,10 +29,18 @@ the mesh itself:
   SVK runs the element-batch kernels (B6, B7); every other block the
   element route of ops/solid.py (plain PyTorch: the reference runs these
   blocks in XLA, not in a Pallas kernel), and a hex8 block of any law its
-  mass with B6.  ``kinem`` linear and a ``tech`` (F-bar, EAS) take general
-  topology and the element route for every block (``ops.tech_force`` under
-  a tech), as the reference's lattice and Pallas paths need nonlinear
-  kinematics and no tech.
+  mass with B6.  ``kinem`` linear, a ``tech`` (F-bar, EAS) and a law with
+  history take general topology and the element route for every block
+  (``ops.tech_force`` under a tech), as the reference's lattice and Pallas
+  paths need nonlinear kinematics, no tech and no history.
+
+A history law keeps its internal variables per Gauss point in
+``state["hist"]`` (block key -> (E, g, nh)); the steps form the residual
+and the Newton operator at the history of the last converged step and
+replace it after convergence.  Springs (k u + c (u - u_old) / dt on their
+nodes) are part of the internal force, on every kind of mesh; the volume
+constraint's force enters each step's residual as a negative external
+force.
 
 The kernels run on a CUDA device, their twins on the CPU.  State dicts from
 ``init_state``/``compute_initial_state`` hold flat dof vectors, as in the
@@ -54,6 +65,7 @@ from fourc_tpu_torch.core.functions import FunctionManager
 from fourc_tpu_torch.core.mesh import Discretization
 from fourc_tpu_torch.linalg import solvers
 from fourc_tpu_torch.linalg.precond import block_jacobi, jacobi
+from fourc_tpu_torch.materials.base import HistoryMaterial
 from fourc_tpu_torch.materials.elastic import lame
 from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import lattice as _lat
@@ -117,7 +129,8 @@ class FieldBlock:
     its geometry G, wdet computed once (ops/solid.py), and under a ``tech``
     the technology's force with its geometry ``geo`` (F-bar's centre
     gradients, EAS's enhancement fields).  A hex8 block of any law
-    computes its mass with B6."""
+    computes its mass with B6.  A block of a history law takes its history
+    h (E, g, nh) and dt on the element route."""
 
     key: str
     cell: object  # CellType
@@ -134,16 +147,19 @@ class FieldBlock:
     tech: str = "none"
     geo: torch.Tensor | None = None
 
-    def force(self, ue):
+    def force(self, ue, h=None, dt=None, with_history=False):
+        """The block's internal force; with ``with_history`` (a history
+        law) the pair (force, new history)."""
         if self.tech != "none":
             return ops.tech_force(self.tech, self.G, self.wdet, self.geo, ue,
                                   self.material, self.kinem)
         if self.model is not None:
             return sk.hex8_force(self.X, ue, self.lam, self.mu, self.model)
         return ops.element_force(self.G, self.wdet, ue, self.material,
-                                 kinem=self.kinem)
+                                 kinem=self.kinem, history=h, dt=dt,
+                                 with_history=with_history)
 
-    def tangent(self, ue, ve, mcoef, standard=False):
+    def tangent(self, ue, ve, mcoef, standard=False, h=None, dt=None):
         """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass); with
         ``standard`` the tangent without the block's tech."""
         c = mcoef * self.density
@@ -155,9 +171,10 @@ class FieldBlock:
             return sk.hex8_tangent(self.X, ue, ve, self.lam, self.mu,
                                    self.model, c)
         return ops.element_tangent(self.G, self.wdet, ue, ve, self.material,
-                                   c, self.N, kinem=self.kinem)
+                                   c, self.N, kinem=self.kinem, history=h,
+                                   dt=dt)
 
-    def hessian_at(self, ue, we):
+    def hessian_at(self, ue, we, h=None, dt=None):
         """ve -> D^2 f(ue)[we, ve], the derivative along ve of the tangent
         apply K(ue) we: forward-mode AD of the plain PyTorch tangent (B7's
         twin on a block of a kernel law, the element route or the tech's
@@ -175,24 +192,26 @@ class FieldBlock:
         else:
             def tangent(x):
                 return ops.element_tangent(self.G, self.wdet, x, we,
-                                           self.material, kinem=self.kinem)
+                                           self.material, kinem=self.kinem,
+                                           history=h, dt=dt)
         return lambda ve: torch.func.jvp(tangent, (ue,), (ve,))[1]
 
-    def diag_blocks(self, ue):
+    def diag_blocks(self, ue, h=None, dt=None):
         """The 3x3 nodal diagonal blocks of every element's tangent at ue,
         (nen, 3, 3, E), from its 3*nen unit probes: one tangent pass each
         (B7 on a block of a kernel law).  Under a tech the probes read the
         standard tangent, as the reference's ``build_preconditioner`` does
         (its ``element_stiffness`` takes no tech): the preconditioner, and
-        with it the Krylov counts, are the reference's."""
+        with it the Krylov counts, are the reference's.  A history law's
+        probes read the old history h."""
         nd, E = ue.shape
         out = ue.new_empty((nd // 3, 3, 3, E))
         for k in range(nd):
             probe = torch.zeros_like(ue)
             probe[k] = 1.0
             a, j = divmod(k, 3)
-            out[a, :, j] = self.tangent(ue, probe, 0.0,
-                                        standard=True)[3 * a:3 * a + 3]
+            out[a, :, j] = self.tangent(ue, probe, 0.0, standard=True, h=h,
+                                        dt=dt)[3 * a:3 * a + 3]
         return out
 
     def mass(self, ve):
@@ -217,9 +236,29 @@ def unsupported_blocks(disc: Discretization, block_mat: dict) -> list:
             out.append(f"element block {key!r}: {blk.conn.shape[1]} nodes "
                        f"per {blk.cell} element")
         mat = block_mat.get(key)
-        if mat is not None and not hasattr(mat, "pk2_from_E"):
+        if mat is not None and not (hasattr(mat, "pk2_from_E")
+                                    or isinstance(mat, HistoryMaterial)):
             out.append(f"element block {key!r}: material "
                        f"{type(mat).__name__} (no PK2 stress)")
+    return out
+
+
+def unsupported_history(block_mat: dict, kinem: str, tech: str) -> list:
+    """The history laws that lack the form ``kinem`` calls (``evaluate``
+    under nonlinear kinematics, ``evaluate_small`` under linear; the
+    reference has no other form either), and any under a tech (the port's
+    F-bar and EAS take no history)."""
+    form = "evaluate_small" if kinem == "linear" else "evaluate"
+    out = []
+    for key, m in block_mat.items():
+        if not isinstance(m, HistoryMaterial):
+            continue
+        if not hasattr(m, form):
+            out.append(f"element block {key!r}: material "
+                       f"{type(m).__name__} under kinem {kinem!r}")
+        if tech != "none":
+            out.append(f"element block {key!r}: material "
+                       f"{type(m).__name__} (history) under tech {tech!r}")
     return out
 
 
@@ -227,7 +266,9 @@ def takes_lattice_path(disc: Discretization, block_mat: dict,
                        kinem: str, tech: str = "none") -> bool:
     """A mesh of one hex8 block whose law has a kernel model keeps the
     lattice paths under nonlinear kinematics and no tech when its
-    connectivity is a lattice; every other mesh has general topology."""
+    connectivity is a lattice; every other mesh has general topology (as
+    every law with history, which has no kernel model: a lattice cannot
+    carry Gauss-point history)."""
     if len(disc.blocks) != 1 or kinem != "nonlinear" or tech != "none":
         return False
     key, blk = next(iter(disc.blocks.items()))
@@ -243,7 +284,8 @@ class SolidField:
     def __init__(self, disc: Discretization, materials: dict,
                  params: SolidParams, dirichlet=(), neumann=(),
                  functions: FunctionManager | None = None,
-                 device="cuda", dtype=torch.float64, body_forces=()):
+                 device="cuda", dtype=torch.float64, body_forces=(),
+                 springs=(), constraints=()):
         self.disc = disc
         self.params = params
         self.device = resolve_device(device)
@@ -294,6 +336,25 @@ class SolidField:
         self.body_forces = list(body_forces)
         self._body_data = [self._body_block(key) for key in self.block_mat] \
             if self.body_forces else []
+        self._init_springs(springs)
+        self.constraints = list(constraints)
+
+    def _init_springs(self, springs):
+        """Spring-dashpot supports (the reference's ``springs``: nodes,
+        stiffness and viscosity per component) as two per-dof coefficient
+        vectors k and c in the field's layout (None without springs)."""
+        self.k_spring = self.c_spring = None
+        if not springs:
+            return
+        k, c = np.zeros(self.ndof), np.zeros(self.ndof)
+        for sp in springs:
+            nodes = np.asarray(sp["nodes"], np.int64)
+            for coef, vals in ((k, sp.get("stiffness")),
+                               (c, sp.get("viscosity"))):
+                for i, v in enumerate(list(vals or [])[:self.ndpn]):
+                    np.add.at(coef, nodes * self.ndpn + i, float(v))
+        self.k_spring = self.to_lattice(self._t(k))
+        self.c_spring = self.to_lattice(self._t(c))
 
     def _init_lattice(self):
         """One hex8 block of a law with a kernel, on a lattice."""
@@ -367,6 +428,7 @@ class SolidField:
             raise ValueError("TECH fbar requires 3D nonlinear kinematics")
         if p.mass not in ("consistent", "lumped"):
             out.append(f"{p.mass} mass")
+        out += unsupported_history(self.block_mat, p.kinem, p.tech)
         if out:
             raise NotImplementedError(
                 "not ported: " + "; ".join(out) + " (the ported solid field "
@@ -396,30 +458,85 @@ class SolidField:
             b.key: fn(b, *(self.dofmap.gather(v, b.key) for v in vecs))
             for b in self.blocks})
 
-    def internal_force(self, u):
+    def internal_force(self, u, hist=None, dt=None, u_old=None,
+                       with_history=False):
+        """f_int(u), the springs' k u included, and c (u - u_old) / dt where
+        the caller passes u_old (the reference's statics and gen-alpha
+        steps; its one-step-theta and explicit steps do not).  ``hist``
+        (block key -> (E, g, nh)) is the history of the last converged step
+        and ``dt`` the step; with ``with_history`` the result is
+        (f_int, the new history)."""
+        new_hist = {}
         if self.blocks:
-            return self._assemble(FieldBlock.force, u)
-        if self.x is not None:
-            return lk.neo_force_gen(self.x, u, self.dN, self.w, self.N,
-                                    self.lam, self.mu, self.model)
-        return lk.neo_force(u, self.G, self.wdet, self.lam, self.mu,
-                            self.model)
+            hist = hist or {}
+            per_block = {}
+            for b in self.blocks:
+                ue = self.dofmap.gather(u, b.key)
+                if b.key in hist:
+                    per_block[b.key], new_hist[b.key] = b.force(
+                        ue, hist[b.key], dt, with_history=True)
+                else:
+                    per_block[b.key] = b.force(ue)
+            f = self.dofmap.scatter_add(per_block)
+        elif self.x is not None:
+            f = lk.neo_force_gen(self.x, u, self.dN, self.w, self.N,
+                                 self.lam, self.mu, self.model)
+        else:
+            f = lk.neo_force(u, self.G, self.wdet, self.lam, self.mu,
+                             self.model)
+        if self.k_spring is not None:
+            fsp = self.k_spring * u
+            if u_old is not None and dt:
+                fsp = fsp + self.c_spring * (u - u_old) / dt
+            f = f + fsp
+        return (f, new_hist) if with_history else f
 
-    def tangent(self, u, v, mcoef=0.0):
+    def tangent(self, u, v, mcoef=0.0, hist=None, dt=None):
         """K(u) v + mcoef * M v, M the field's mass (each block's density
         included): consistent, in the same kernel pass, or lumped, added
-        elementwise after a pass without the mass."""
+        elementwise after a pass without the mass; K includes the springs'
+        k (their dashpots: ``dashpot``) and a history law's tangent at the
+        old history ``hist``."""
         if mcoef and self.params.mass == "lumped":
-            return self.tangent(u, v) + mcoef * self.mlump * v
+            return self.tangent(u, v, hist=hist, dt=dt) \
+                + mcoef * self.mlump * v
         if self.blocks:
-            return self._assemble(
-                lambda b, ue, ve: b.tangent(ue, ve, mcoef), u, v)
-        c = mcoef * self.density
-        if self.x is not None:
-            return lk.neo_tangent_gen(self.x, u, v, self.dN, self.w, self.N,
-                                      self.lam, self.mu, self.model, c)
-        return lk.neo_tangent(u, v, self.G, self.wdet, self.N, self.lam,
-                              self.mu, self.model, c)
+            hist = hist or {}
+            out = self._assemble(
+                lambda b, ue, ve: b.tangent(ue, ve, mcoef, h=hist.get(b.key),
+                                            dt=dt), u, v)
+        else:
+            c = mcoef * self.density
+            if self.x is not None:
+                out = lk.neo_tangent_gen(self.x, u, v, self.dN, self.w,
+                                         self.N, self.lam, self.mu,
+                                         self.model, c)
+            else:
+                out = lk.neo_tangent(u, v, self.G, self.wdet, self.N,
+                                     self.lam, self.mu, self.model, c)
+        if self.k_spring is not None:
+            out = out + self.k_spring * v
+        return out
+
+    def dashpot(self, v, dt):
+        """The derivative of the dashpots' c (u - u_old) / dt along v (0
+        without springs)."""
+        return 0.0 if self.c_spring is None else self.c_spring * v / dt
+
+    def constraint_force(self, u, t):
+        """The sum of the constraints' forces at u (the field's layout) and
+        time t; the residual adds it, as the reference subtracts it from
+        f_ext."""
+        un = self.from_lattice(u)
+        return self.to_lattice(sum(c.force(un, t) for c in self.constraints))
+
+    def constraint_tangent_at(self, u, t):
+        """v -> the derivative of ``constraint_force`` at u along v, each
+        constraint linearized once here."""
+        un = self.from_lattice(u)
+        applies = [c.linearize(un, t) for c in self.constraints]
+        return lambda v: self.to_lattice(sum(
+            a(self.from_lattice(v)) for a in applies))
 
     @property
     def plain_tangent(self):
@@ -431,7 +548,7 @@ class SolidField:
             self.lattice is None and all(b.model is None
                                          for b in self.blocks))
 
-    def force_hessian_at(self, u, w):
+    def force_hessian_at(self, u, w, hist=None, dt=None):
         """v -> the derivative along v of K(u) w, D^2 f(u)[w, v]: the Newton
         operator's term of stiffness-proportional Rayleigh damping, in plain
         PyTorch on every device (no TPU kernel computes it; the reference
@@ -440,9 +557,10 @@ class SolidField:
         geometry and general topology by forward-mode AD of the tangent's
         twin (B5's, B7's) or of the element route's tangent."""
         if self.blocks:
-            dm = self.dofmap
+            dm, hist = self.dofmap, hist or {}
             parts = [(b, b.hessian_at(dm.gather(u, b.key),
-                                      dm.gather(w, b.key)))
+                                      dm.gather(w, b.key), hist.get(b.key),
+                                      dt))
                      for b in self.blocks]
             return lambda v: dm.scatter_add(
                 {b.key: h(dm.gather(v, b.key)) for b, h in parts})
@@ -635,13 +753,15 @@ class SolidField:
             self._amg_cache[shift] = M
         return self._amg_cache[shift]
 
-    def build_preconditioner(self, u, mass_shift=0.0):
+    def build_preconditioner(self, u, mass_shift=0.0, hist=None, dt=None):
         """Jacobi or nodal-block Jacobi (``params.precond``) from the 3x3
         nodal diagonal blocks of the element tangents at u (in the field's
         layout) plus ``mass_shift`` times the lumped mass; constrained
         dofs get identity rows and columns.  A hex8 block of a kernel law
         takes its blocks from B7 on the element batch, lattice or not (24
-        launches); every other block from the element route."""
+        launches); every other block from the element route, a history
+        law's at the old history ``hist``.  The springs are not in it (nor
+        in the reference's)."""
         if self._probe_blocks is None:
             blocks = self.blocks or [self._field_block(self.key)]
             self._probe_blocks = [
@@ -651,9 +771,10 @@ class SolidField:
         un = self.from_lattice(u).reshape(-1, 3)
         nn = un.shape[0]
         blocks = un.new_zeros((nn, 3, 3))
+        hist = hist or {}
         for b, conn in self._probe_blocks:
             ue = un[conn].reshape(conn.shape[0], -1).T.contiguous()
-            db = b.diag_blocks(ue)  # (nen, 3, 3, E)
+            db = b.diag_blocks(ue, hist.get(b.key), dt)  # (nen, 3, 3, E)
             blocks.index_add_(0, conn.T.reshape(-1),
                               db.permute(0, 3, 1, 2).reshape(-1, 3, 3))
         eye = torch.eye(3, dtype=torch.bool, device=self.device)
@@ -685,6 +806,11 @@ class SolidField:
         num = un.new_zeros((nn, 3, 3))
         den = un.new_zeros((nn,))
         for key, mat in self.block_mat.items():
+            if isinstance(mat, HistoryMaterial):
+                raise NotImplementedError(
+                    f"nodal stresses of element block {key!r} "
+                    f"({type(mat).__name__}, a law with history) are not "
+                    f"ported")
             cell = get_cell(self.disc.blocks[key].cell)
             conn = torch.as_tensor(self.disc.blocks[key].conn,
                                    device=self.device).long()
@@ -703,21 +829,34 @@ class SolidField:
 
 
 def init_state(f: SolidField):
-    """Zero state, flat dof vectors."""
+    """Zero state, flat dof vectors, and ``hist``: for each block of a law
+    with history its initial history (E, g, nh)."""
     z = torch.zeros(f.ndof, dtype=f.dtype, device=f.device)
+    hist = {}
+    for key, m in f.block_mat.items():
+        if isinstance(m, HistoryMaterial):
+            ne = f.disc.blocks[key].conn.shape[0]
+            ngp = get_cell(f.disc.blocks[key].cell).ngp
+            hist[key] = m.init_history(ne * ngp, f.dtype, f.device).reshape(
+                ne, ngp, -1)
     return {"d": z, "v": z.clone(), "a": z.clone(), "t": 0.0, "step": 0,
-            "fint": z.clone(), "fext": z.clone()}
+            "fint": z.clone(), "fext": z.clone(), "hist": hist}
 
 
 def compute_initial_state(f: SolidField, state, consistent_mass_tol=1e-10):
     """Forces and the acceleration consistent with (d, v, t):
     M a0 = f_ext(0) - f_int(d0), solved with Jacobi-preconditioned CG for
     the consistent mass, divided by the lumped mass where it is positive,
-    and a0 = 0 under statics."""
+    and a0 = 0 under statics.  The internal force is taken at the state's
+    history without dt (a viscous law's factors are then 1, as the
+    reference's), f_ext includes the constraints' forces at d0."""
     t0 = state["t"]
     d0 = f.dbc.apply(state["d"], t0)
-    fint0 = f.internal_force(f.to_lattice(d0))
+    d0l = f.to_lattice(d0)
+    fint0 = f.internal_force(d0l, state.get("hist"))
     fext0 = f.external_force(t0)
+    if f.constraints:
+        fext0 = fext0 - f.constraint_force(d0l, t0)
     rhs = torch.where(f.free, fext0 - fint0, 0.0)
     if f.params.dyntype == "statics":
         a0 = torch.zeros_like(rhs)
@@ -824,10 +963,11 @@ def make_step(f: SolidField, dt: float | None = None):
     M = _static_precond(f, mass_shift=shift)
     if (M is None and p.newton.lin_method != "direct"
             and p.precond in ("jacobi", "block_jacobi")):
-        def precond_at(u0):
-            return f.build_preconditioner(u0, mass_shift=shift)
+        def precond_at(u0, hist=None):
+            return f.build_preconditioner(u0, mass_shift=shift, hist=hist,
+                                          dt=dt)
     else:
-        def precond_at(u0):
+        def precond_at(u0, hist=None):
             return M
     step = build(f, dt, precond_at)
     step.precond = M  # for reports: the hierarchy and its setup times

@@ -2,14 +2,17 @@
 
 Counterpart of fourc_tpu/physics/structure_driver.py for the solid field the
 port carries: hex8, tet4 and wedge6 blocks of laws with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper), nonlinear or linear kinematics, tech none,
+(Neo-Hooke, SVK, ElastHyper) or with Gauss-point history
+(viscoelasthyper, plasticlinelast, plasticnlnlogneohooke), nonlinear or
+linear kinematics, tech none,
 fbar or eas_mild, consistent or lumped mass, statics, one-step-theta,
 gen-alpha (with Rayleigh damping) and explicit central differences, Newton
 with CG, GMRES or BiCGStab and a preconditioner (``gmg`` on a lattice,
 ``amg`` or ``gmg``'s SA-AMG fallback on general topology, ``jacobi``,
 ``block_jacobi`` or ``none``) or with the direct solver, Zienkiewicz-Xie
-adaptive time steps, Dirichlet conditions, surface tractions and body
-forces, and nodal stresses for the result tests.
+adaptive time steps, Dirichlet conditions, surface tractions, body forces,
+spring-dashpot supports and the penalty volume constraint, and nodal
+stresses for the result tests.
 ``check_supported`` names every setting of a deck that the reference
 honours and the port does not carry, before anything is built; the deck
 keys that the reference ignores for a structure problem stay ignored.
@@ -23,10 +26,11 @@ from fourc_tpu_torch.core.cells import SOLID_CELLS, get_cell
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.mesh import _detect_structured
 from fourc_tpu_torch.linalg.solvers import SOLVERS
-from fourc_tpu_torch.materials import make_material
+from fourc_tpu_torch.materials import HistoryMaterial, make_material
 from fourc_tpu_torch.ops.solid import TECHS
 from fourc_tpu_torch.physics import driver as drv
 from fourc_tpu_torch.physics import solid as ps
+from fourc_tpu_torch.physics.constraints import VolumeConstraint
 from fourc_tpu_torch.physics.solid_lattice import from_lattice_state
 from fourc_tpu_torch.utils.timer import Timers
 
@@ -107,7 +111,14 @@ def check_supported(deck, disc_name="structure"):
                      if int(blk.mat_id[0]) in mats}
         out += ps.unsupported_blocks(disc, block_mat)
         multigrid = iterative and solver["precond"] in ("gmg", "amg")
+        out += ps.unsupported_history(block_mat, dyn["kinem"], dyn["tech"])
         for key, m in block_mat.items():
+            second = ("tech 'eas_mild'" if dyn["tech"] == "eas_mild"
+                      else "k_damp" if dyn["k_damp"] else None)
+            if second and getattr(m, "first_order_only", False):
+                out.append(f"element block {key!r}: summand isoogden under "
+                           f"{second} (its stress is exact to first order, "
+                           f"and {second} takes its second derivative)")
             if multigrid and not hasattr(m, "youngs"):
                 out.append(f"element block {key!r}: material "
                            f"{type(m).__name__} under solver.precond "
@@ -125,6 +136,10 @@ def check_supported(deck, disc_name="structure"):
                     if str(t.get("quantity", "")).lower().startswith(
                         "stress_")]
         for key, blk in disc.blocks.items():
+            if stresses and isinstance(block_mat.get(key), HistoryMaterial):
+                out.append(f"nodal stresses of element block {key!r} "
+                           f"({type(block_mat[key]).__name__}, a law with "
+                           f"history)")
             cell = (get_cell(blk.cell) if stresses and blk.cell in SOLID_CELLS
                     else None)
             if (cell is not None and cell.ngp < cell.nen
@@ -133,7 +148,27 @@ def check_supported(deck, disc_name="structure"):
                            f"{cell.ngp} Gauss points for {cell.nen} nodes "
                            f"(the reference's pseudo-inverse extrapolation "
                            f"is wrong there)")
-    for nb in deck.conditions.get(disc_name, {}).get("neumann", ()):
+    conds = deck.conditions.get(disc_name, {})
+    for sp in conds.get("spring_dashpot", ()):
+        if (any(float(c) for c in sp.get("viscosity") or ())
+                and dyn["dynamictype"] in ("onesteptheta", "explicit")):
+            out.append(f"spring_dashpot viscosity {list(sp['viscosity'])} "
+                       f"under dynamictype {dyn['dynamictype']!r} (the "
+                       f"reference drops the dashpot there: its "
+                       f"one-step-theta and explicit steps pass no u_old)")
+    for con in conds.get("constraint", ()):
+        kind = str(con.get("kind", "volume")).lower()
+        enforcement = str(con.get("enforcement", "penalty"))
+        if kind != "volume":
+            out.append(f"constraint kind {kind!r} (volume is ported)")
+        elif enforcement != "penalty":
+            out.append(f"constraint enforcement {enforcement!r} (penalty is "
+                       f"ported)")
+        else:
+            cells = sorted({fb.cell for fb in con["faces"]} - {"quad4"})
+            if cells:
+                out.append(f"constraint faces {cells}")
+    for nb in conds.get("neumann", ()):
         if nb.kind != "traction":
             out.append(f"neumann kind {nb.kind!r}")
         cells = sorted({fb.cell for fb in nb.faces} - {"quad4"})
@@ -147,13 +182,20 @@ def build_field(deck, disc_name="structure", device="cuda") -> ps.SolidField:
     disc = deck.disc[disc_name]
     materials = {mid: make_material(spec) for mid, spec in deck.materials.items()}
     conds = deck.conditions.get(disc_name, {})
+    dtype = getattr(torch, deck.problem["dtype"])  # float64 by default
+    constraints = [
+        VolumeConstraint(c["faces"], disc.coords, disc.dim,
+                         c.get("penalty", 1e6), c.get("funct", 0),
+                         deck.functions, device=resolve_device(device),
+                         dtype=dtype)
+        for c in conds.get("constraint", ())]
     return ps.SolidField(
         disc, materials, solid_params_from(deck),
         dirichlet=conds.get("dirichlet", ()),
         neumann=conds.get("neumann", ()),
         body_forces=conds.get("body_force", ()),
-        functions=deck.functions, device=device,
-        dtype=getattr(torch, deck.problem["dtype"]),  # float64 by default
+        springs=conds.get("spring_dashpot", ()), constraints=constraints,
+        functions=deck.functions, device=device, dtype=dtype,
     )
 
 

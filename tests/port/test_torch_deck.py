@@ -3,9 +3,12 @@
 The gate decks run through ``fourc_tpu_torch.app.main`` on the CPU in
 float64 (the kernels' twins and the element route) and must meet their
 RESULT DESCRIPTION anchors: those that the JAX package wrote into the
-lattice, AMG, tet4, integrator, EAS, F-bar and GOH decks, and those quoted
-verbatim from 4C in the three converted hex8 and wedge6 decks (the F-bar
-one with nodal stresses).  The loader is held against
+lattice, AMG, tet4, integrator, EAS, F-bar, GOH, Ogden, volume-constraint
+and history decks, and those quoted verbatim from 4C in the three converted
+hex8 and wedge6 decks (the F-bar one with nodal stresses).  The
+spring-dashpot deck runs with its viscosity zeroed: the reference drops the
+dashpot under one-step-theta, so its anchors are spring-only, and the deck
+as written is refused, naming the dashpot.  The loader is held against
 ``fourc_tpu.io.deck.load`` (numpy loading, no jit): meshes, sets, validated
 sections, conditions and FUNCTs must be identical.  Every other structure
 deck in the repository is refused with NotImplementedError before the field
@@ -48,10 +51,18 @@ HEX8_FBAR = os.path.join(ROOT, "decks", "ref_converted",
 TECH_DECKS = [os.path.join(ROOT, "decks", f"solid_{name}.yaml")
               for name in ("eas_bending", "fbar_compression",
                            "goh_artery_strip")]
+# the Ogden and Sussman-Bathe summands, the volume constraint and the laws
+# with Gauss-point history
+HISTORY_DECKS = [os.path.join(ROOT, "decks", f"{name}.yaml")
+                 for name in ("solid_ogden_uniaxial", "volume_constraint",
+                              "viscoelastic_relaxation", "solid_j2_cyclic",
+                              "plasticity_lognh_torsion")]
+SPRINGS = os.path.join(ROOT, "decks", "spring_dashpot_settling.yaml")
 # deck -> number of anchors
 GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
               TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS},
-              **{path: 3 for path in TECH_DECKS}, HEX8_FBAR: 22}
+              **{path: 3 for path in TECH_DECKS}, HEX8_FBAR: 22,
+              **{path: 3 for path in HISTORY_DECKS}}
 
 
 def _structure_decks():
@@ -62,7 +73,8 @@ def _structure_decks():
         with open(path) as fh:
             data = yaml.safe_load(fh)
         ptype = str((data.get("problem") or {}).get("type", "structure"))
-        if ptype.lower() == "structure" and path not in GATE_DECKS:
+        if (ptype.lower() == "structure" and path not in GATE_DECKS
+                and path != SPRINGS):
             out.append(path)
     return out
 
@@ -75,6 +87,33 @@ def test_gate_deck_meets_its_anchors(path, capsys):
     out = capsys.readouterr().out
     assert f"result tests: {n}/{n} passed" in out
     assert "FAIL" not in out
+
+
+def spring_deck_without_dashpot():
+    """The spring-dashpot deck with its viscosity zeroed, as a dict: what
+    the reference runs of it under one-step-theta."""
+    with open(SPRINGS) as fh:
+        data = yaml.safe_load(fh)
+    for sp in data["conditions"]["spring_dashpot"]:
+        sp["viscosity"] = [0.0] * len(sp["viscosity"])
+    return data
+
+
+def test_spring_deck_without_dashpot_meets_its_anchors():
+    res = driver.run(spring_deck_without_dashpot(), device="cpu")
+    assert res.fields["structure"].f.lattice is not None  # springs on B1-B3
+    tests = result_test.run_result_tests(res.deck.result_tests, res)
+    assert len(tests) == 6 and all(t.ok for t in tests), [str(t)
+                                                          for t in tests]
+    assert res.stats["structure"]["newton_iters"] == 12  # the reference's
+
+
+def test_spring_deck_with_dashpot_is_refused_naming_it(capsys):
+    with pytest.raises(NotImplementedError, match="not ported") as exc:
+        main([SPRINGS, "--device", "cpu"])
+    assert ("spring_dashpot viscosity [0, 0, 40.0] under dynamictype "
+            "'onesteptheta' (the reference drops the dashpot there"
+            in str(exc.value))
 
 
 def test_ngroup_runs_are_bitwise_identical(capsys):
@@ -151,7 +190,7 @@ def _same_faces(got, want):
 
 
 @pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC, WEDGE6_DYNAMIC,
-                                  TET4, HEX8_FBAR],
+                                  TET4, HEX8_FBAR, SPRINGS, HISTORY_DECKS[1]],
                          ids=lambda p: os.path.basename(p))
 def test_loader_matches_reference(path):
     from fourc_tpu.io import deck as jdeck
@@ -193,6 +232,21 @@ def test_loader_matches_reference(path):
                 (b.onoff, b.val, b.funct, b.kind)
         assert [(a.val, a.funct) for a in conds["body_force"]] == \
             [(b.val, b.funct) for b in wc["body_force"]]
+        assert len(conds.get("spring_dashpot", ())) == \
+            len(wc.get("spring_dashpot", ()))
+        for a, b in zip(conds.get("spring_dashpot", ()),
+                        wc.get("spring_dashpot", ())):
+            np.testing.assert_array_equal(a["nodes"], b["nodes"])
+            assert (a["stiffness"], a["viscosity"]) == \
+                (b["stiffness"], b["viscosity"])
+        assert len(conds.get("constraint", ())) == \
+            len(wc.get("constraint", ()))
+        for a, b in zip(conds.get("constraint", ()),
+                        wc.get("constraint", ())):
+            assert a.keys() == b.keys()
+            _same_faces(a["faces"], b["faces"])
+            assert {k: v for k, v in a.items() if k != "faces"} == \
+                {k: v for k, v in b.items() if k != "faces"}
     xyz = np.random.default_rng(0).uniform(-1, 2, size=(5, 3))
     for fid in got.raw.get("functions") or {}:
         for t in (0.0, 0.02, 0.37):
@@ -228,6 +282,19 @@ UNPORTED_SETTINGS = {
         "type": "elasthyper", "density": 1.0, "summands": [
             {"type": "isoyeoh", "c1": 1.0, "c2": 0.0, "c3": 0.0}]}},
         "elasthyper summand 'isoyeoh' is not ported"),
+    "ogden_k_damp": ("materials", {1: {
+        "type": "elasthyper", "density": 1.0, "summands": [
+            {"type": "isoogden", "mue": 80.0, "alpha": 2.5}]}},
+        "summand isoogden under k_damp"),
+    "j2_kinem_nonlinear": ("materials", {1: {
+        "type": "plasticlinelast", "youngs": 1000.0, "nue": 0.3,
+        "yield_stress": 5.0}}, "PlasticLinElast under kinem 'nonlinear'"),
+    "constraint_mpc": ("conditions", {"constraint": [{
+        "kind": "mpc", "nodes": [1], "comps": [0], "coeffs": [1.0]}]},
+        "constraint kind 'mpc'"),
+    "constraint_lagrange": ("conditions", {"constraint": [{
+        "kind": "volume", "faces": "zmax", "enforcement": "lagrange"}]},
+        "constraint enforcement 'lagrange'"),
 }
 
 

@@ -10,7 +10,10 @@ permuted box's full size is n=56; ``tet4`` is the permuted box split into
 6 tet4 per hex, chip_smoke.py phase 9 (c); ``explicit`` is the flagship
 box under explicit central differences, chip_smoke.py phase 10 (d);
 ``fbar`` and ``eas`` the permuted box under F-bar with GMRES(50) and
-under EAS with CG, chip_smoke.py phase 11 (b), (c)), runs
+under EAS with CG, chip_smoke.py phase 11 (b), (c); ``visco``, ``j2`` and
+``lognh`` the permuted box under the history laws of chip_smoke.py phase
+12 (b)-(d), the plastic ones after its elastic step that sets the yield
+stress), runs
 two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
@@ -47,12 +50,17 @@ def main():
               "tet4": ("permuted", "tet4"),
               **{name.split("_")[0]: ("permuted", "hex8", changes, newton)
                  for name, changes, newton, _ in cs.TECH_PATHS
-                 if name.endswith("_permuted")}}
+                 if name.endswith("_permuted")},
+              **{name.split("_")[0]: ("permuted", "hex8", changes, newton, {
+                  k: (1e30 if v is None else v) for k, v in law.items()})
+                 for name, law, changes, newton, _ in cs.HISTORY_PATHS}}
     if mesh == "explicit":
         f, step, _, dt = cs.explicit_problem(n)
         print(f"explicit n={n}: dt {dt:.4e}")
     elif mesh in meshes:
         f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
+        if hasattr(f.block_mat[next(iter(f.block_mat))], "yield_stress"):
+            cs._set_yield(mesh)(f)
         step = cs.make_step(f, mesh)
     else:
         raise ValueError(f"mesh must be one of {list(meshes) + ['explicit']}"
