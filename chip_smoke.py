@@ -124,7 +124,28 @@ phase):
        100%;
    (d) ``lognh_permuted``: the same under plasticnlnlogneohooke (isohard
        500, the yield stress chosen alike), GMRES(50), the same Newton,
-       1 + 1 steps.
+       1 + 1 steps;
+13. the other plasticity laws:
+   (a) decks/druckerprager_shear.yaml, gtn_voided_tension.yaml,
+       lemaitre_damage_bar.yaml, robinson_relaxation.yaml,
+       sma_superelastic_cycle.yaml and crystal_plasticity_shear.yaml
+       through ``app.main.main`` on the card in float64 (3/3 each; the GTN
+       and Lemaitre decks hold no rotation about z, and their rotated
+       anchor pair is met as its rotation-free sum, ROTATION_FREE), then
+       GPU against CPU through ``driver.run`` as phase 12 (a), with the
+       reference's Newton iterations and substeps on both devices;
+   (b) ``gtn_permuted``: phase 7's problem under kinem linear and
+       plasticgtn (E 1e4, nu 0.3, isohard 400, the GTN deck's f0, fn, en,
+       sn), the yield stress half the largest von Mises stress of an
+       elastic first step, GMRES(50) with phase 7's SA-AMG, line search
+       and up to 25 Newton iterations, 1 + 2 steps, the share of Gauss
+       points with ebar > 0 strictly between 0 and 100%;
+   (c) ``crystal_permuted``: the same box under crystal_plasticity (fcc,
+       nsub 10, gdot0 1e-2, rate_m 0.2), g0 half the largest resolved
+       shear of an elastic first step, h0 2.5 g0, g_sat 3 g0, 1 + 1
+       steps, the share with g > g0 strictly between 0 and 100%.
+   (b) and (c) time the law's linearization (once per Newton iterate)
+   beside the force and the tangent.
 
 The nodal stresses of a deck with ``stress_*`` anchors (the converted
 F-bar deck of phase 11) are compared GPU against CPU after every step like
@@ -156,6 +177,7 @@ try:
     from fourc_tpu_torch import materials
     from fourc_tpu_torch.app import main as app_main
     from fourc_tpu_torch.core import cells, conditions, functions, gridgen
+    from fourc_tpu_torch.io.result_test import read_node_lines
     from fourc_tpu_torch.materials.elastic import lame
     from fourc_tpu_torch.ops import common as gm
     from fourc_tpu_torch.ops import cuda_build
@@ -165,6 +187,7 @@ try:
     from fourc_tpu_torch.ops import solid_kernels as sk
     from fourc_tpu_torch.physics import driver
     from fourc_tpu_torch.physics import solid as ps
+    from tools.rigid_rotation_anchors import ROTATION_FREE
 except ImportError as exc:  # the script without the repository around it
     print(f"[phase] import: FAILED: {type(exc).__name__}: {exc} (run "
           f"chip_smoke.py from the root of a checkout)", flush=True)
@@ -1210,7 +1233,10 @@ def _decks_on_the_card(label, decks):
     move by about 1e-13 for half an ulp of rounding in the internal force
     (tools/fbar_anchor_noise.py: mean 1.08e-12 from 4C, 3 of 12 perturbed
     CPU runs within the tolerance), which is what a card's rounding
-    differs by.  Each such miss is printed."""
+    differs by.  Each such miss is printed.  A deck of ROTATION_FREE is
+    held to its anchors' rotation-free part (``_rotation_free_anchors``).
+    Returns deck -> device -> the run's aggregate counts."""
+    aggs = {}
     for path, spec in decks.items():
         src = path
         if isinstance(spec[0], dict):
@@ -1220,7 +1246,10 @@ def _decks_on_the_card(label, decks):
         reset_launches()
         rc, out = _cli([deck_file, "--device", "cuda"])
         counts = launches()
-        if rc != 0 or f"result tests: {n_tests}/{n_tests} passed" not in out:
+        if path in ROTATION_FREE:
+            _rotation_free_anchors(label, path, out, n_tests)
+        elif (rc != 0
+              or f"result tests: {n_tests}/{n_tests} passed" not in out):
             if not noisy:
                 raise RuntimeError(f"{path}: rc {rc}, RESULT DESCRIPTION "
                                    f"not met on the card")
@@ -1236,6 +1265,7 @@ def _decks_on_the_card(label, decks):
                        f"{NOISE_BOUND:g}; the CPU meets all {n_tests}: "
                        + "; ".join(missed))
         runs, agg, fields = {}, {}, {}
+        aggs[path] = agg
         for device in ("cuda", "cpu"):
             runs[device] = states = []
             res = driver.run(src, device=device, callbacks=[
@@ -1284,6 +1314,7 @@ def _decks_on_the_card(label, decks):
             if hist != agg["cpu"]["dt_history"]:
                 raise RuntimeError(f"{path}: the accepted dt sequence differs "
                                    f"from the CPU's")
+    return aggs
 
 
 # deck -> (the kernels its run launches, its anchors[, the noise-floor
@@ -1423,21 +1454,27 @@ def _set_yield(name):
 
 
 def _time_history(f, state):
-    """Device ms per call (CUDA events, 5 calls) of the force and the
-    tangent with the mass at the state's displacement and history, on the
-    field and on its block alone."""
+    """Device ms per call (CUDA events, 5 calls, 3 for the
+    linearization) of the force, the law's linearization (once per Newton
+    iterate: its derivatives along six strain directions) and the tangent
+    with the mass at the state's displacement and history (the Krylov
+    apply: the field's reuses its iterate's linearization), on the field
+    and on its block alone."""
     u, hist, dt = state["d"], state["hist"], 0.02
     v = torch.where(f.free, torch.randn_like(u), 0.0) * 1e-2
     blk = f.blocks[0]
     ue, ve = f.dofmap.gather(u, blk.key), f.dofmap.gather(v, blk.key)
     h = hist[blk.key]
+    mod = blk.moduli(ue, h, dt)
     return {"force": _time(lambda: f.internal_force(u, hist, dt), reps=5),
+            "linearization": _time(lambda: blk.moduli(ue, h, dt), reps=3),
             "tangent with the mass": _time(
                 lambda: f.tangent(u, v, 9930.0, hist, dt), reps=5),
             "element force and history alone": _time(
                 lambda: blk.force(ue, h, dt, with_history=True), reps=5),
             "element tangent alone": _time(
-                lambda: blk.tangent(ue, ve, 9930.0, h=h, dt=dt), reps=5)}
+                lambda: blk.tangent(ue, ve, 9930.0, h=h, dt=dt, moduli=mod),
+                reps=5)}
 
 
 def phase_history():
@@ -1460,9 +1497,28 @@ def phase_history():
     history_paths()
 
 
-def history_paths():
+# law -> (its history entry that grows where it yields, that entry's name,
+# its value before the first step: the yielded share of phases 12 and 13)
+YIELDED = {"plasticlinelast": (18, "kappa", lambda m: 0.0),
+           "plasticnlnlogneohooke": (6, "alpha", lambda m: 0.0),
+           "plasticgtn": (9, "ebar", lambda m: 0.0),
+           "crystal_plasticity": (9, "g", lambda m: m.g0)}
+
+
+def prepare_for(name, law):
+    """The ``prepare`` of a path of phase 12 or 13 under ``law``: the
+    elastic first step that sets the yield stress or the slip resistance,
+    or None."""
+    if "yield_stress" in law:
+        return _set_yield(name)
+    if law["type"] == "crystal_plasticity":
+        return _set_slip_resistance(name)
+    return None
+
+
+def history_paths(paths=None):
     """Phase 12 (b)-(d): the permuted box at n=56 under the three history
-    laws."""
+    laws (phase 13 (b), (c): ``paths`` PLASTICITY_PATHS)."""
     def after(f, state):
         blk = f.blocks[0]
         law, h = blk.material.deck_name, state["hist"][blk.key]
@@ -1470,10 +1526,11 @@ def history_paths():
         log(law, f"blocks (key, elements, kernel model): {blocks}; history "
                  f"{tuple(h.shape)} {h.dtype}, {h.numel() * h.element_size()}"
                  f" bytes")
-        if hasattr(blk.material, "yield_stress"):
-            k = 18 if law == "plasticlinelast" else 6  # kappa, alpha
-            share = float((h[..., k] > 0).double().mean())
-            log(law, f"Gauss points with kappa > 0 after the steps: "
+        if law in YIELDED:
+            k, what, start = YIELDED[law]
+            h0 = start(blk.material)
+            share = float((h[..., k] > h0).double().mean())
+            log(law, f"Gauss points with {what} > {h0:.6g} after the steps: "
                      f"{100 * share:.2f}% of {h.shape[0] * h.shape[1]}")
             if not 0.0 < share < 1.0:
                 raise RuntimeError(f"{law}: yielded share {share} not "
@@ -1481,14 +1538,112 @@ def history_paths():
         log(law, "ms per call (device, CUDA events, float32): " + ", ".join(
             f"{k} {v:.3f}" for k, v in _time_history(f, state).items()))
 
-    for name, law, changes, newton, steps in HISTORY_PATHS:
-        prepare = _set_yield(name) if "yield_stress" in law else None
+    for name, law, changes, newton, steps in paths or HISTORY_PATHS:
         phase_main_path(name, n_steps=steps, mesh="permuted",
                         n=FULL_N["permuted"], changes=changes, newton=newton,
                         material={k: (1e30 if v is None else v)
                                   for k, v in law.items()},
                         kernels={"solid_force"}, after=after,
-                        prepare=prepare)
+                        prepare=prepare_for(name, law))
+
+
+# phase 13 (a): deck -> the Newton iterations and substeps of the
+# reference's run (python -m fourc_tpu.app.main <deck>); each has 3
+# anchors and launches none of B1-B7
+PLASTICITY_DECKS = {"decks/druckerprager_shear.yaml": (16, 4),
+                    "decks/gtn_voided_tension.yaml": (27, 8),
+                    "decks/lemaitre_damage_bar.yaml": (29, 8),
+                    "decks/robinson_relaxation.yaml": (8, 10),
+                    "decks/sma_superelastic_cycle.yaml": (95, 15),
+                    "decks/crystal_plasticity_shear.yaml": (24, 6)}
+# phase 13 (b), (c): bench.py's permuted box under GTN (the gate deck's f0,
+# fn, en, sn; isohard its ratio to E) and crystal plasticity (the gate
+# deck's gdot0, rate_m and nsub; g0 set from an elastic step, h0 and g_sat
+# its ratios to g0)
+GTN_LAW = {"type": "plasticgtn", "youngs": 1.0e4, "nue": 0.3,
+           "yield_stress": None, "isohard": 400.0, "f0": 0.02, "fn": 0.04,
+           "en": 0.1, "sn": 0.05, "density": 1.0}
+CRYSTAL_LAW = {"type": "crystal_plasticity", "youngs": 1.0e4, "nue": 0.3,
+               "g0": None, "gdot0": 1e-2, "rate_m": 0.2, "h0": None,
+               "g_sat": None, "nsub": 10, "density": 1.0}
+PLASTICITY_PATHS = (("gtn_permuted", GTN_LAW, {"kinem": "linear"},
+                     {"lin_method": "gmres", "gmres_restart": 50,
+                      **PLASTIC_NEWTON}, 2),
+                    ("crystal_permuted", CRYSTAL_LAW, {},
+                     {"lin_method": "gmres", "gmres_restart": 50,
+                      **PLASTIC_NEWTON}, 1))
+
+
+def _rotation_free_anchors(label, path, out, n_tests):
+    """The card's CLI run of a ROTATION_FREE deck: every anchor but the
+    rotated pair met, and the pair's sum within the sum of their
+    tolerances of the anchors' sum."""
+    lines = read_node_lines(out)
+    pair = ROTATION_FREE[path]
+    if len(lines) != n_tests:
+        raise RuntimeError(f"{path}: {len(lines)} anchors read, not "
+                           f"{n_tests}")
+    for key, (actual, expected, tol) in lines.items():
+        if key not in pair and not abs(actual - expected) <= tol:
+            raise RuntimeError(f"{path}: anchor {key} missed on the card")
+    got = sum(lines[k][0] for k in pair)
+    want = sum(lines[k][1] for k in pair)
+    tol = sum(lines[k][2] for k in pair)
+    log(label, f"{path}: {n_tests - len(pair)} of {n_tests} anchors met; "
+               f"the rigid rotation about z is free: {pair[0]} + {pair[1]} "
+               f"= {got!r} against the anchors' {want!r} (tol {tol:g}), "
+               f"each alone {[lines[k][0] for k in pair]} against "
+               f"{[lines[k][1] for k in pair]}")
+    if not abs(got - want) <= tol:
+        raise RuntimeError(f"{path}: the rotation-free sum {got!r} misses "
+                           f"the anchors' {want!r}")
+
+
+def _set_slip_resistance(name):
+    """prepare(f) of phase 13 (c): one elastic step (g0 out of reach),
+    then g0 half the largest resolved shear |tau_a| at its Gauss points,
+    h0 = 2.5 g0 and g_sat = 3 g0 (the crystal deck's ratios)."""
+    def prepare(f):
+        blk = f.blocks[0]
+        mat = blk.material
+        mat.g0 = mat.h0 = mat.g_sat = 1e30
+        state = ps.compute_initial_state(f, ps.init_state(f))
+        state, stats = make_step(f, name)(state)
+        if not stats["converged"]:
+            raise RuntimeError(f"{name}: the elastic step did not converge")
+        ue = f.dofmap.gather(state["d"], blk.key)
+        H = sops._grad(ue.reshape(blk.cell.nen, 3, -1), blk.G)
+        E = sops._green_lagrange(H)
+        tau = mat.resolved_shears(2.0 * E + gm.eye3l(E),
+                                  gm.eye3l(E).expand_as(E))
+        tmax = float(tau.abs().max())
+        mat.g0 = 0.5 * tmax
+        mat.h0, mat.g_sat = 2.5 * mat.g0, 3.0 * mat.g0
+        log(name, f"elastic first step: {stats['iters']} Newton, "
+                  f"{stats['lin_iters']} Krylov; largest resolved shear "
+                  f"{tmax:.6g}, g0 set to {mat.g0:.6g}, h0 {mat.h0:.6g}, "
+                  f"g_sat {mat.g_sat:.6g}")
+    return prepare
+
+
+def phase_plasticity():
+    """Phase 13: the other plasticity laws."""
+    # (a) the six decks: anchors on the card, GPU against CPU with the
+    # history, the reference's Newton iterations and substeps
+    aggs = _decks_on_the_card("plasticity", {
+        path: ((), 3) for path in PLASTICITY_DECKS})
+    for path, (newton, substeps) in PLASTICITY_DECKS.items():
+        for device, agg in aggs[path].items():
+            got = (agg["newton_iters"], agg["substeps"])
+            log("plasticity", f"{path} on {device}: {got[0]} Newton, "
+                              f"{got[1]} substeps, {agg['lin_iters']} "
+                              f"Krylov (the reference: {newton}, "
+                              f"{substeps})")
+            if got != (newton, substeps):
+                raise RuntimeError(f"{path}: {got} Newton iterations and "
+                                   f"substeps on {device}, the reference "
+                                   f"takes {(newton, substeps)}")
+    history_paths(PLASTICITY_PATHS)
 
 
 def _phase(name, fn, *args):
@@ -1519,6 +1674,7 @@ def main():
     _phase("10 integrators", phase_integrators)
     _phase("11 element technologies", phase_techs)
     _phase("12 history, summands, springs, constraint", phase_history)
+    _phase("13 plasticity laws", phase_plasticity)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

@@ -12,7 +12,12 @@ Deck syntax:
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
+
+# a node line as ``TestResult`` prints it
+NODE_LINE = re.compile(r"^\[(?:OK  |FAIL)\] \S+ node (\d+) (\S+): "
+                       r"actual=(\S+) expected=(\S+) tol=(\S+)$", re.M)
 
 
 @dataclass
@@ -34,6 +39,13 @@ class TestResult:
             f"[{mark}] {d.get('field','structure')} {where}: "
             f"actual={self.actual:.16g} expected={self.expected:.16g} tol={self.tolerance:g}"
         )
+
+
+def read_node_lines(out: str) -> dict:
+    """(node, quantity) -> (actual, expected, tolerance) of every node line
+    printed in ``out``."""
+    return {(int(m[0]), m[1]): tuple(float(x) for x in m[2:])
+            for m in NODE_LINE.findall(out)}
 
 
 def run_result_tests(tests: list, run_result) -> list[TestResult]:

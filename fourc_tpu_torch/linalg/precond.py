@@ -26,6 +26,7 @@ def block_jacobi(blocks: torch.Tensor):
 
     def M(r):
         rn = r.reshape(-1, 3).T  # (3, n_nodes)
-        return (inv * rn[None]).sum(dim=1).T.reshape(-1)
+        out = inv[:, 0] * rn[0] + inv[:, 1] * rn[1] + inv[:, 2] * rn[2]
+        return out.T.reshape(-1)  # summed in order: alike on any device
 
     return M

@@ -7,6 +7,15 @@ in CG and BiCGStab, the new Hessenberg column in GMRES (whose Givens
 rotations and back substitution, a few dozen numbers, are done on the host
 in float64).  One device sync per iteration, which a device-side test or a
 CUDA graph would remove.
+
+GMRES sums its inner products and norms with ``tree_sum`` (elementwise
+additions in a fixed pairwise order) instead of a reduction kernel or a
+BLAS call, whose order differs between a card and the CPU: the card's
+iterates are then the CPU's, bit for bit, where the operator and the
+preconditioner round alike (the history decks, whose Newton loops carry a
+rounding difference of the Krylov solve into the answer at 5e-11).  On
+the card its log2 n launches per sum cost no step time that the host's
+spread lets one see (``tools/gmres_sums.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from fourc_tpu_torch.ops.common import sqrt_rn
 
 
 @dataclass
@@ -28,6 +39,30 @@ class KrylovResult:
 
 def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def tree_sum(x, dim=-1):
+    """The sum of x over ``dim``, added pairwise in a fixed order (x padded
+    with zeros to a power of two, then halved log2 n times): the same bits
+    on every device, at most log2(n) roundings deep."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    size = 1 << max(n - 1, 0).bit_length()
+    if size != n:
+        x = torch.cat([x, x.new_zeros((size - n,) + x.shape[1:])])
+    while size > 1:
+        size //= 2
+        x = x[:size] + x[size:]
+    return x[0]
+
+
+def norm_rn(x):
+    """||x||_2 by ``tree_sum`` and the correctly rounded square root: the
+    same bits on every device."""
+    x = x.reshape(-1)
+    ss = tree_sum(x * x)
+    pos = ss > 0  # sqrt_rn takes x > 0
+    return torch.where(pos, sqrt_rn(torch.where(pos, ss, 1.0)), ss)
 
 
 def cg(A, b, x0=None, M=None, tol=1e-8, atol=0.0, maxiter=1000):
@@ -71,14 +106,15 @@ def gmres(A, b, x0=None, M=None, tol=1e-8, atol=0.0, restart=30,
     ``iters`` is the sum of the Arnoldi steps of every cycle and
     ``resnorm`` the Givens estimate |g[jdone]| of the last cycle.  The
     basis V (m+1 vectors of b's size) stays on b's device; its products
-    run in b's dtype at full precision (TF32 stays off)."""
+    and norms are ``tree_sum``s in b's dtype (the same bits on every
+    device)."""
     M = M or (lambda v: v)
     shape, dtype = b.shape, b.dtype
     b = b.reshape(-1)
     m = int(restart)
     x = torch.zeros_like(b) if x0 is None else x0.reshape(-1).clone()
     tiny = float(np.sqrt(torch.finfo(dtype).tiny))
-    stop = max(tol * float(torch.linalg.vector_norm(b)), atol)
+    stop = max(tol * float(norm_rn(b)), atol)
 
     def op(v):
         return A(v.reshape(shape)).reshape(-1)
@@ -88,9 +124,9 @@ def gmres(A, b, x0=None, M=None, tol=1e-8, atol=0.0, restart=30,
 
     def cycle(x):
         r = b - op(x)
-        beta = float(torch.linalg.vector_norm(r))
+        beta = float(norm_rn(r))
         V = b.new_zeros((m + 1, b.numel()))
-        V[0] = r / max(beta, tiny)
+        V[0] = r * (1.0 / max(beta, tiny))
         H = np.zeros((m + 1, m))
         cs, sn = np.zeros(m), np.zeros(m)
         g = np.zeros(m + 1)
@@ -99,11 +135,11 @@ def gmres(A, b, x0=None, M=None, tol=1e-8, atol=0.0, restart=30,
         for j in range(m):
             w = op(prec(V[j]))
             Vj = V[:j + 1]
-            hcol = torch.mv(Vj, w)
-            w = w - torch.mv(Vj.T, hcol)
-            corr = torch.mv(Vj, w)
-            w = w - torch.mv(Vj.T, corr)
-            hj1 = torch.linalg.vector_norm(w)
+            hcol = tree_sum(Vj * w, 1)
+            w = w - tree_sum(Vj * hcol[:, None], 0)
+            corr = tree_sum(Vj * w, 1)
+            w = w - tree_sum(Vj * corr[:, None], 0)
+            hj1 = norm_rn(w)
             V[j + 1] = w / torch.clamp(hj1, min=tiny)
             col = torch.cat([hcol + corr, hj1.reshape(1)]).cpu().double()
             hc = np.zeros(m + 1)
@@ -125,11 +161,11 @@ def gmres(A, b, x0=None, M=None, tol=1e-8, atol=0.0, restart=30,
         y = np.zeros(0)
         if jdone:  # back substitution on the upper-triangular H
             y = _solve_upper(H[:jdone, :jdone], g[:jdone])
-        corr = torch.mv(V[:jdone].T, torch.as_tensor(y, dtype=dtype,
-                                                      device=b.device))
+        yt = torch.as_tensor(y, dtype=dtype, device=b.device)
+        corr = tree_sum(V[:jdone] * yt[:, None], 0)
         return x + prec(corr), abs(g[jdone]), jdone
 
-    res = float(torch.linalg.vector_norm(b - op(x)))
+    res = float(norm_rn(b - op(x)))
     k = 0
     while k < maxiter and res > stop:
         x, res, jdone = cycle(x)

@@ -68,12 +68,38 @@ class HistoryMaterial(Material):
 
     def init_history(self, n, dtype=torch.float64, device="cpu"):
         """The history of n Gauss points before the first step, (n, nh):
-        zero for every ported law (the reference's)."""
+        zero, as the reference's base class gives it; a law whose
+        reference seeds another start (crystal plasticity's [I, g0])
+        overrides this."""
         return torch.zeros((n,) + tuple(self.history_shape), dtype=dtype,
                            device=device)
 
 
-def max0(x):
-    """max(x, 0) whose forward-mode derivative at x = 0 is 1/2, as
-    ``jnp.maximum``'s (torch.maximum's is 0 there)."""
-    return x * torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
+# The reference's return maps clip with jnp.maximum, jnp.minimum, jnp.clip
+# and jnp.abs, whose forward derivatives differ from torch's at a tie: the
+# mean of both sides (torch's clamp takes 1 at a bound, maximum and minimum
+# one side), and +1 for abs at 0 (torch's 0).  Newton's iteration counts
+# follow these derivatives where a state sits on a bound (u = 0 in the
+# first iteration of every step), so the laws take them from here.
+
+
+def maximum(a, b):
+    """``jnp.maximum(a, b)``: at a tie the value a and the derivative the
+    mean of both sides'; ``b`` a tensor or a number."""
+    return torch.where(a > b, a, torch.where(a < b, b, 0.5 * (a + b)))
+
+
+def minimum(a, b):
+    """``jnp.minimum(a, b)``, with ``maximum``'s tie rule."""
+    return torch.where(a < b, a, torch.where(a > b, b, 0.5 * (a + b)))
+
+
+def clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)`` = minimum(hi, maximum(lo, x)): derivative
+    1/2 at either bound."""
+    return minimum(maximum(x, lo), hi)
+
+
+def abs1(x):
+    """``jnp.abs``: derivative +1 at 0 (torch.abs's is 0 there)."""
+    return torch.where(x < 0, -x, x)

@@ -296,34 +296,84 @@ def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True,
     return (out, h_new) if with_history else out
 
 
+def _history_law(material, kinem, history, dt):
+    """The stress of a history law as a function of the strain (eps, or
+    E with C = 2E + I) at the old history (E, g, nh)."""
+    h = history.permute(2, 1, 0)
+    if kinem == "linear":
+        return lambda e: material.evaluate_small(e, h, dt)[0]
+    return lambda e: material.evaluate(2.0 * e + gm.eye3l(e), h, dt)[0]
+
+
+# the symmetric unit directions of ``history_moduli``: (i, j) is e_ij for
+# i == j, e_ij + e_ji otherwise
+_SYM_DIRECTIONS = ((0, 0), (1, 1), (2, 2), (0, 1), (1, 2), (0, 2))
+
+
+def history_moduli(G, u, material, kinem, history, dt=None):
+    """The linearization of a history law's stress at u and the old
+    history, for ``element_tangent``'s ``moduli``: the stress S (None
+    under linear kinematics) and its forward derivatives along the six
+    symmetric unit strains, (6, 3, 3, g, E).  A Newton iterate takes it
+    once, and every Krylov apply of its tangent then costs a contraction
+    instead of a forward pass through the return map (the stress is
+    linear in a symmetric strain direction, so the apply is the
+    directional derivative to rounding)."""
+    nen, _, _, E = G.shape
+    H = _grad(u.reshape(nen, 3, E), G)
+    law = _history_law(material, kinem, history, dt)
+    e = _sym(H) if kinem == "linear" else _green_lagrange(H)
+    dirs = torch.zeros((len(_SYM_DIRECTIONS),) + e.shape, dtype=e.dtype,
+                       device=e.device)
+    for k, (i, j) in enumerate(_SYM_DIRECTIONS):
+        dirs[k, i, j] = 1.0
+        dirs[k, j, i] = 1.0
+    S, C = torch.func.vmap(lambda d: torch.func.jvp(law, (e,), (d,)))(dirs)
+    return (S[0] if kinem != "linear" else None), C
+
+
+def _contract(moduli, de):
+    """sum_k de_k C_k over the symmetric components of de (3, 3, ...)."""
+    out = de[0, 0] * moduli[0]
+    for k, (i, j) in enumerate(_SYM_DIRECTIONS[1:], start=1):
+        out = out + de[i, j] * moduli[k]
+    return out
+
+
 def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None,
-                    kinem="nonlinear", history=None, dt=None):
+                    kinem="nonlinear", history=None, dt=None, moduli=None):
     """Directional derivative of ``element_force`` along v plus
     ``mcoef * sum_g wdet_g N N^T v``: with dH = grad v and F = I + H,
     dE = (dH^T F + F^T dH) / 2, dS = the stress's derivative along dE
     (forward-mode AD of ``pk2_from_E``, or of a history law's return map
     at the old history, as the reference's ``jax.jvp``) and
     dP = dH S + F dS; with ``kinem`` "linear" dP = the stress's derivative
-    at eps along sym dH."""
+    at eps along sym dH.  ``moduli``, a history law's
+    ``history_moduli`` at u, replaces the forward pass by its
+    contraction."""
     nen, _, _, E = G.shape
     ut, vt = u.reshape(nen, 3, E), v.reshape(nen, 3, E)
     H, dH = _grad(ut, G), _grad(vt, G)
     if history is None:
         law = material.pk2_from_E
-    else:
-        h = history.permute(2, 1, 0)
-        if kinem == "linear":
-            def law(e):
-                return material.evaluate_small(e, h, dt)[0]
-        else:
-            def law(e):
-                return material.evaluate(2.0 * e + gm.eye3l(e), h, dt)[0]
+    elif moduli is None:
+        # a forward pass through the return map per apply: what
+        # ``FieldBlock.hessian_at`` differentiates along u (through the
+        # moduli it would nest a six-direction linearization in every
+        # apply, not measured)
+        law = _history_law(material, kinem, history, dt)
     if kinem == "linear":
-        _, dP = torch.func.jvp(law, (_sym(H),), (_sym(dH),))
+        if moduli is not None:
+            dP = _contract(moduli[1], _sym(dH))
+        else:
+            _, dP = torch.func.jvp(law, (_sym(H),), (_sym(dH),))
     else:
         F = H + gm.eye3l(H)
-        FtdH = gm.tmatmul3l(F, dH)
-        S, dS = torch.func.jvp(law, (_green_lagrange(H),), (_sym(FtdH),))
+        dE = _sym(gm.tmatmul3l(F, dH))
+        if moduli is not None:
+            S, dS = moduli[0], _contract(moduli[1], dE)
+        else:
+            S, dS = torch.func.jvp(law, (_green_lagrange(H),), (dE,))
         dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
     out = _integrate(dP * wdet, G)
     if mcoef:

@@ -40,7 +40,9 @@ class NewtonParams:
 
 
 def _norm(x) -> float:
-    return float(torch.linalg.vector_norm(x))
+    """||x||, the same bits on every device (the adaptive Krylov tolerance
+    and the line search read it)."""
+    return float(solvers.norm_rn(x))
 
 
 def _converged(rnorm, dnorm, params: NewtonParams, rnorm0, k):

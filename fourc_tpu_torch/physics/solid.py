@@ -159,9 +159,11 @@ class FieldBlock:
                                  kinem=self.kinem, history=h, dt=dt,
                                  with_history=with_history)
 
-    def tangent(self, ue, ve, mcoef, standard=False, h=None, dt=None):
+    def tangent(self, ue, ve, mcoef, standard=False, h=None, dt=None,
+                moduli=None):
         """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass); with
-        ``standard`` the tangent without the block's tech."""
+        ``standard`` the tangent without the block's tech; ``moduli`` a
+        history law's ``history_moduli`` at ue."""
         c = mcoef * self.density
         if self.tech != "none" and not standard:
             return ops.tech_tangent(self.tech, self.G, self.wdet, self.geo,
@@ -172,7 +174,13 @@ class FieldBlock:
                                    self.model, c)
         return ops.element_tangent(self.G, self.wdet, ue, ve, self.material,
                                    c, self.N, kinem=self.kinem, history=h,
-                                   dt=dt)
+                                   dt=dt, moduli=moduli)
+
+    def moduli(self, ue, h, dt=None):
+        """A history law's linearization at ue and the old history h
+        (``ops.history_moduli``)."""
+        return ops.history_moduli(self.G, ue, self.material, self.kinem, h,
+                                  dt)
 
     def hessian_at(self, ue, we, h=None, dt=None):
         """ve -> D^2 f(ue)[we, ve], the derivative along ve of the tangent
@@ -206,12 +214,14 @@ class FieldBlock:
         probes read the old history h."""
         nd, E = ue.shape
         out = ue.new_empty((nd // 3, 3, 3, E))
+        mod = (self.moduli(ue, h, dt) if h is not None and self.model is None
+               else None)
         for k in range(nd):
             probe = torch.zeros_like(ue)
             probe[k] = 1.0
             a, j = divmod(k, 3)
             out[a, :, j] = self.tangent(ue, probe, 0.0, standard=True, h=h,
-                                        dt=dt)[3 * a:3 * a + 3]
+                                        dt=dt, moduli=mod)[3 * a:3 * a + 3]
         return out
 
     def mass(self, ve):
@@ -325,6 +335,7 @@ class SolidField:
         self.free = self.to_lattice(free.to(self.device)) > 0
         self._amg_cache = {}
         self._probe_blocks = None
+        self._moduli_memo = None  # _history_moduli's last linearization
         self._neumann_data = []
         for nb in self.neumann:
             if nb.kind != "traction":
@@ -502,9 +513,11 @@ class SolidField:
                 + mcoef * self.mlump * v
         if self.blocks:
             hist = hist or {}
+            mods = self._history_moduli(u, hist, dt)
             out = self._assemble(
                 lambda b, ue, ve: b.tangent(ue, ve, mcoef, h=hist.get(b.key),
-                                            dt=dt), u, v)
+                                            dt=dt, moduli=mods.get(b.key)),
+                u, v)
         else:
             c = mcoef * self.density
             if self.x is not None:
@@ -517,6 +530,25 @@ class SolidField:
         if self.k_spring is not None:
             out = out + self.k_spring * v
         return out
+
+    def _history_moduli(self, u, hist, dt):
+        """Block key -> ``FieldBlock.moduli`` at u for every block of a
+        history law on the element route, kept while u (the same tensor,
+        unchanged), the history and dt stay: the Krylov applies of one
+        Newton iterate share one linearization."""
+        blocks = [b for b in self.blocks
+                  if b.key in hist and b.tech == "none" and b.model is None]
+        if not blocks:
+            return {}
+        held = (u, *(hist[b.key] for b in blocks))
+        stamp = (dt, [b.key for b in blocks], [t._version for t in held])
+        memo = self._moduli_memo
+        if (memo is None or memo[1] != stamp
+                or any(a is not b for a, b in zip(memo[0], held))):
+            memo = self._moduli_memo = (held, stamp, {
+                b.key: b.moduli(self.dofmap.gather(u, b.key), hist[b.key],
+                                dt) for b in blocks})
+        return memo[2]
 
     def dashpot(self, v, dt):
         """The derivative of the dashpots' c (u - u_old) / dt along v (0
@@ -772,11 +804,20 @@ class SolidField:
         nn = un.shape[0]
         blocks = un.new_zeros((nn, 3, 3))
         hist = hist or {}
+        per_block = {}
         for b, conn in self._probe_blocks:
             ue = un[conn].reshape(conn.shape[0], -1).T.contiguous()
             db = b.diag_blocks(ue, hist.get(b.key), dt)  # (nen, 3, 3, E)
-            blocks.index_add_(0, conn.T.reshape(-1),
-                              db.permute(0, 3, 1, 2).reshape(-1, 3, 3))
+            if self.blocks:
+                per_block[b.key] = db
+            else:
+                blocks.index_add_(0, conn.T.reshape(-1),
+                                  db.permute(0, 3, 1, 2).reshape(-1, 3, 3))
+        if per_block:  # the dof map's slot-order sums: alike on any device
+            blocks = torch.stack([self.dofmap.scatter_add({
+                key: db[:, :, j].reshape(-1, db.shape[-1])
+                for key, db in per_block.items()}) for j in range(3)],
+                dim=-1).reshape(nn, 3, 3)
         eye = torch.eye(3, dtype=torch.bool, device=self.device)
         if mass_shift:
             ml = self.from_lattice(self.mlump).reshape(-1, 3)[:, 0]

@@ -8,7 +8,9 @@ and history decks, and those quoted verbatim from 4C in the three converted
 hex8 and wedge6 decks (the F-bar one with nodal stresses).  The
 spring-dashpot deck runs with its viscosity zeroed: the reference drops the
 dashpot under one-step-theta, so its anchors are spring-only, and the deck
-as written is refused, naming the dashpot.  The loader is held against
+as written is refused, naming the dashpot; the six decks of the other
+plasticity laws run in tests/port/test_torch_plasticity.py.  The loader is
+held against
 ``fourc_tpu.io.deck.load`` (numpy loading, no jit): meshes, sets, validated
 sections, conditions and FUNCTs must be identical.  Every other structure
 deck in the repository is refused with NotImplementedError before the field
@@ -58,6 +60,12 @@ HISTORY_DECKS = [os.path.join(ROOT, "decks", f"{name}.yaml")
                               "viscoelastic_relaxation", "solid_j2_cyclic",
                               "plasticity_lognh_torsion")]
 SPRINGS = os.path.join(ROOT, "decks", "spring_dashpot_settling.yaml")
+# the other plasticity laws' decks, run in tests/port/test_torch_plasticity.py
+PLASTICITY_DECKS = [os.path.join(ROOT, "decks", f"{name}.yaml")
+                    for name in ("druckerprager_shear", "gtn_voided_tension",
+                                 "lemaitre_damage_bar", "robinson_relaxation",
+                                 "sma_superelastic_cycle",
+                                 "crystal_plasticity_shear")]
 # deck -> number of anchors
 GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
               TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS},
@@ -74,7 +82,7 @@ def _structure_decks():
             data = yaml.safe_load(fh)
         ptype = str((data.get("problem") or {}).get("type", "structure"))
         if (ptype.lower() == "structure" and path not in GATE_DECKS
-                and path != SPRINGS):
+                and path != SPRINGS and path not in PLASTICITY_DECKS):
             out.append(path)
     return out
 

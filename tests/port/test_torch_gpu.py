@@ -471,3 +471,108 @@ def test_slice4d_step_on_the_card_matches_the_cpu(cuda, case):
         out[device] = (state["d"], state["v"], f.nodal_stresses(state["d"]))
     for got, want in zip(out[cuda], out["cpu"]):
         assert _rel(got.cpu(), want) <= TOL[torch.float64]
+
+
+# slice 4f: the other plasticity laws, and the functions and sums that
+# round alike on every device
+PLASTICITY_LAWS = {
+    "plasticdruckerprager": ({"youngs": 1000.0, "nue": 0.3,
+                              "cohesion": 10.0, "eta": 0.4,
+                              "isohard": 20.0}, None),
+    "plasticlemaitre": ({"youngs": 1000.0, "nue": 0.3, "yield_stress": 10.0,
+                         "isohard": 60.0, "s0": 0.02, "s_exp": 1.5}, None),
+    "plasticgtn": ({"youngs": 1000.0, "nue": 0.3, "yield_stress": 12.0,
+                    "isohard": 40.0, "f0": 0.02, "fn": 0.04, "en": 0.1,
+                    "sn": 0.05}, None),
+    "superelastic_sma": ({"youngs": 1000.0, "nue": 0.3, "eps_l": 0.05,
+                          "s_as_s": 20.0, "s_as_f": 30.0, "s_sa_s": 15.0,
+                          "s_sa_f": 8.0}, None),
+    "robinson": ({"youngs": 1000.0, "nue": 0.3, "k0": 5.0, "hard": 50.0,
+                  "recov": 0.1}, 0.5),
+    "viscoplastic_perzyna": ({"youngs": 1000.0, "nue": 0.3,
+                              "yield_stress": 5.0, "eta": 2.0,
+                              "m_exp": 1.5}, 0.5),
+    "crystal_plasticity": ({"youngs": 1000.0, "nue": 0.3, "g0": 4.0,
+                            "gdot0": 1e-2, "rate_m": 0.2, "h0": 10.0,
+                            "g_sat": 12.0}, 0.25),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(PLASTICITY_LAWS))
+def test_plasticity_law_on_the_card_is_the_cpus_bitwise(cuda, dtype, name):
+    """Stress, new history and the stress's forward derivative of one
+    seeded batch: in float64 the card's bits are the CPU's (the laws add,
+    multiply, divide by tensors and take ``sqrt_rn`` and the ``*_ieee``
+    functions only; the float64 decks rely on it), in float32 within the
+    float32 tolerance."""
+    from fourc_tpu_torch.materials import make_material
+
+    params, dt = PLASTICITY_LAWS[name]
+    mat = make_material({"type": name, **params})
+    nh = mat.history_shape[0]
+    rng = np.random.default_rng(9)
+    n = 600
+    H = rng.normal(size=(3, 3, n)) * np.geomspace(1e-4, 0.08, n)
+    if name == "crystal_plasticity":
+        F = np.eye(3)[:, :, None] + H
+        arg = np.einsum("kin,kjn->ijn", F, F)
+        h = np.tile(np.r_[np.eye(3).reshape(9), 4.0][:, None], (1, n))
+        h[:9, n // 2:] += rng.normal(size=(9, n - n // 2)) * 0.01
+    else:
+        arg = 0.5 * (H + H.transpose(1, 0, 2))
+        h = rng.normal(size=(nh, n)) * 1e-3
+        h[9:] = np.abs(h[9:]) * 10.0
+    darg = rng.normal(size=arg.shape)
+    darg = 0.5 * (darg + darg.transpose(1, 0, 2))
+    out = {}
+    for device in ("cpu", cuda):
+        def t(x):
+            return torch.as_tensor(x, dtype=dtype, device=device)
+
+        fn = (mat.evaluate if name == "crystal_plasticity"
+              else mat.evaluate_small)
+        (s, hn), (ds, _) = torch.func.jvp(lambda x: fn(x, t(h), dt),
+                                          (t(arg),), (t(darg),))
+        out[device] = [x.cpu() for x in (s, hn, ds)]
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert torch.isfinite(want).all()
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ieee_functions_and_tree_sums_are_the_cpus_bitwise(cuda, dtype):
+    """exp, cosh, sinh, log, pow and the fixed-order sums and norm of
+    GMRES give the CPU's bits on the card; so does a GMRES solve with an
+    elementwise operator."""
+    from fourc_tpu_torch.linalg import solvers
+    from fourc_tpu_torch.ops import common as gm
+
+    rng = np.random.default_rng(2)
+    x = rng.uniform(-60.0, 60.0, size=100_003)
+    pos = np.exp(rng.uniform(-80.0, 80.0, size=100_003))
+    V = rng.normal(size=(7, 100_003))
+    out = {}
+    for device in ("cpu", cuda):
+        def t(a):
+            return torch.as_tensor(a, dtype=dtype, device=device)
+
+        diag = t(np.linspace(2.0, 5.0, V.shape[1]))
+
+        def op(v):
+            return diag * v + 0.5 * (torch.roll(v, 1) + torch.roll(v, -1))
+
+        res = solvers.gmres(op, t(V[0]), tol=1e-6 if dtype == torch.float32
+                            else 1e-12, restart=20)
+        vals = [gm.exp_ieee(t(x)), *gm.cosh_sinh_ieee(t(x)),
+                gm.log_ieee(t(pos)), gm.pow_ieee(t(pos[:1000] * 0 + 2.5),
+                                                 1.7),
+                gm.pow_ieee(t(x), 5.0), solvers.tree_sum(t(V), 1),
+                solvers.tree_sum(t(V), 0), solvers.norm_rn(t(V)), res.x]
+        out[device] = [v.cpu() for v in vals] + [res.iters]
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert (torch.equal(got, want) if torch.is_tensor(want)
+                else got == want)

@@ -137,10 +137,12 @@ def test_history_law_matches_reference(name):
 
 
 def test_max0_keeps_the_half_derivative_at_a_tie():
-    from fourc_tpu_torch.materials.base import max0
+    """max(x, 0) as the laws take it, ``maximum(x, 0.0)``."""
+    from fourc_tpu_torch.materials.base import maximum
 
     x = torch.tensor([-1.0, 0.0, 2.0], dtype=torch.float64)
-    val, der = torch.func.jvp(max0, (x,), (torch.ones_like(x),))
+    val, der = torch.func.jvp(lambda a: maximum(a, 0.0), (x,),
+                              (torch.ones_like(x),))
     assert val.tolist() == [0.0, 0.0, 2.0]
     assert der.tolist() == [0.0, 0.5, 1.0]
 

@@ -12,8 +12,9 @@ box under explicit central differences, chip_smoke.py phase 10 (d);
 ``fbar`` and ``eas`` the permuted box under F-bar with GMRES(50) and
 under EAS with CG, chip_smoke.py phase 11 (b), (c); ``visco``, ``j2`` and
 ``lognh`` the permuted box under the history laws of chip_smoke.py phase
-12 (b)-(d), the plastic ones after its elastic step that sets the yield
-stress), runs
+12 (b)-(d), ``gtn`` and ``crystal`` under those of phase 13 (b), (c), the
+plastic ones after its elastic step that sets the yield stress or the
+slip resistance), runs
 two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
@@ -53,14 +54,18 @@ def main():
                  if name.endswith("_permuted")},
               **{name.split("_")[0]: ("permuted", "hex8", changes, newton, {
                   k: (1e30 if v is None else v) for k, v in law.items()})
-                 for name, law, changes, newton, _ in cs.HISTORY_PATHS}}
+                 for name, law, changes, newton, _ in (
+                     cs.HISTORY_PATHS + cs.PLASTICITY_PATHS)}}
+    laws = {name.split("_")[0]: law for name, law, *_ in (
+        cs.HISTORY_PATHS + cs.PLASTICITY_PATHS)}
     if mesh == "explicit":
         f, step, _, dt = cs.explicit_problem(n)
         print(f"explicit n={n}: dt {dt:.4e}")
     elif mesh in meshes:
         f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
-        if hasattr(f.block_mat[next(iter(f.block_mat))], "yield_stress"):
-            cs._set_yield(mesh)(f)
+        prepare = cs.prepare_for(mesh, laws[mesh]) if mesh in laws else None
+        if prepare is not None:
+            prepare(f)
         step = cs.make_step(f, mesh)
     else:
         raise ValueError(f"mesh must be one of {list(meshes) + ['explicit']}"
