@@ -98,7 +98,8 @@ phase):
        1 warm-up and 2 timed steps, every step converged, B6 launched (the
        mass, mass-only) and none of B1-B5 or B7, the F-bar force and
        tangent timed by CUDA events;
-   (c) ``eas_permuted``: the same with tech eas_mild under CG;
+   (c) ``eas_permuted``: the same with tech eas_mild under CG, 1 + 1
+       steps (cut in depth from 1 + 2 to make room for phase 14);
    (d) one step of (b) under BiCGStab;
 12. Gauss-point history, the Ogden and Sussman-Bathe summands,
    spring-dashpots and the volume constraint:
@@ -145,7 +146,32 @@ phase):
        shear of an elastic first step, h0 2.5 g0, g_sat 3 g0, 1 + 1
        steps, the share with g > g0 strictly between 0 and 100%.
    (b) and (c) time the law's linearization (once per Newton iterate)
-   beside the force and the tangent.
+   beside the force and the tangent;
+14. the growth, mixture and muscle laws:
+   (a) decks/muscle_active_twitch.yaml, muscle_blemker_contraction.yaml,
+       cardiac_active_stress_twitch.yaml, growth_remodel_strip.yaml and
+       mixture_gr_artery_strip.yaml through ``app.main.main`` on the card
+       in float64 (3/3 each), then GPU against CPU through ``driver.run``
+       as phase 12 (a), with the reference's Newton iterations and one
+       substep per step on both devices;
+   (b) ``growthremodel_permuted``: phase 7's problem under
+       growthremodel_cm (the gate deck's ratios to E scaled to E 1e4:
+       k_fiber 5e3, sigma_h 625; its rates per step at dt 0.02:
+       k_sigma = k_remodel = 10; prestretch 1.05, fibres along x and y),
+       GMRES(50) with phase 7's SA-AMG (built for the elastin's E 1e4,
+       nu 0.3) and line search, 1 + 2 steps;
+   (c) ``mixture_permuted``: the same under mixture_rule growthremodel
+       (couplogneohooke elastin, frac 0.4, prestretch [1.05, 1, 1]; two
+       remodel fibres of frac 0.3, k1 3333.3, k2 1.5, a [1, +-0.3, 0],
+       lambda_pre 1.08, k_sig 12.5, decay_time 0.16, impl), CG with line
+       search and up to 25 Newton iterations (the prestressed tissue
+       contracts at once, and a full Newton step of its second step
+       inverted elements), 1 + 2;
+   (d) ``blemker_permuted``: the same under muscle_blemker (g1 = g2 = 25,
+       sigma_max 2000, beta 33.3, the deck's p1, p2, lambda_ofl,
+       lambda_star; Neo-Hooke matrix E 1e4, nu 0.3), CG, 1 + 2;
+   (b)-(d) print the law's mean state change (growth of rho or g from its
+   start, the activation) beside the times of phases 12 and 13.
 
 The nodal stresses of a deck with ``stress_*`` anchors (the converted
 F-bar deck of phase 11) are compared GPU against CPU after every step like
@@ -319,15 +345,19 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
+def _smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_environment():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: this smoke "
                            "run needs a CUDA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    smi_line = smi.stdout.strip().splitlines()[0]
+    smi_line = _smi()
     log("env", f"nvidia-smi: {smi_line}")
     log("env", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
                f"device {torch.cuda.get_device_name(0)}, "
@@ -789,7 +819,7 @@ def _share_amg(f, key):
     mesh, constraints and linear-elastic operator, if there was one; then
     record its own."""
     mat = f.block_mat[next(iter(f.block_mat))]
-    ident = (f.disc.coords, f.dbc.free_mask, mat.youngs, mat.nue)
+    ident = (f.disc.coords, f.dbc.free_mask, *materials.elastic_moduli(mat))
     old = SHARED_AMG.get(key)
     if old is not None and all(np.array_equal(a, b) if isinstance(
             a, np.ndarray) else a == b for a, b in zip(old[0], ident)):
@@ -1331,7 +1361,7 @@ TECH_DECKS = {
 TECH_PATHS = (("fbar_permuted", {"tech": "fbar"},
                {"lin_method": "gmres", "gmres_restart": 50}, 2),
               ("eas_permuted", {"tech": "eas_mild"}, {"lin_method": "cg"},
-               2),
+               1),
               ("fbar_bicgstab", {"tech": "fbar"},
                {"lin_method": "bicgstab"}, 0))
 
@@ -1516,6 +1546,23 @@ def prepare_for(name, law):
     return None
 
 
+def _mean_activation(m, h):
+    """Blemker's f_t at the history's time: sigma_max f_t / sigma_max."""
+    return float(m.activation(h[..., 0]).double().mean()) / m.sigma_max
+
+
+# law of phase 14 -> (its state change, measured on the history (E, g,
+# nh) after the steps: nonzero where the law did work)
+GROWN = {"growthremodel_cm": (
+             "mean relative growth of the fibre mass rho from rho0",
+             lambda m, h: float(h[..., [0, 2]].double().mean()) / m.rho0
+             - 1.0),
+         "mixture_rule": (
+             "mean growth of the fibres' g from 1",
+             lambda m, h: float(h[..., 0::2].double().mean()) - 1.0),
+         "muscle_blemker": ("mean activation f_t", _mean_activation)}
+
+
 def history_paths(paths=None):
     """Phase 12 (b)-(d): the permuted box at n=56 under the three history
     laws (phase 13 (b), (c): ``paths`` PLASTICITY_PATHS)."""
@@ -1535,6 +1582,15 @@ def history_paths(paths=None):
             if not 0.0 < share < 1.0:
                 raise RuntimeError(f"{law}: yielded share {share} not "
                                    f"strictly between 0 and 1")
+        if law in GROWN:
+            what, measure = GROWN[law]
+            value = measure(blk.material, h)
+            log(law, f"{what} after the steps, mean over "
+                     f"{h.shape[0] * h.shape[1]} Gauss points: {value:.6g}")
+            if not (np.isfinite(value) and value != 0.0):
+                raise RuntimeError(f"{law}: {what} {value}: the law did no "
+                                   f"work")
+            log(law, f"nvidia-smi: {_smi()}")
         log(law, "ms per call (device, CUDA events, float32): " + ", ".join(
             f"{k} {v:.3f}" for k, v in _time_history(f, state).items()))
 
@@ -1646,6 +1702,65 @@ def phase_plasticity():
     history_paths(PLASTICITY_PATHS)
 
 
+# phase 14 (a): deck -> (the Newton iterations of the reference's run,
+# python -m fourc_tpu.app.main <deck>; its steps, one substep each); each
+# has 3 anchors and launches none of B1-B7
+BIOLOGY_DECKS = {"decks/muscle_active_twitch.yaml": (12, 4),
+                 "decks/muscle_blemker_contraction.yaml": (13, 4),
+                 "decks/cardiac_active_stress_twitch.yaml": (24, 8),
+                 "decks/growth_remodel_strip.yaml": (14, 6),
+                 "decks/mixture_gr_artery_strip.yaml": (19, 6)}
+# phase 14 (b)-(d): bench.py's permuted box under the gate decks' laws,
+# their parameters at the decks' ratios to E scaled to E 1e4 and their
+# rates per step at dt 0.02
+GROWTHREMODEL_LAW = {"type": "growthremodel_cm", "youngs_elastin": 1.0e4,
+                     "nue": 0.3, "k_fiber": 5.0e3, "sigma_h": 625.0,
+                     "k_sigma": 10.0, "k_remodel": 10.0, "prestretch": 1.05,
+                     "a1": [1.0, 0.0, 0.0], "a2": [0.0, 1.0, 0.0],
+                     "density": 1.0}
+MIXTURE_LAW = {"type": "mixture_rule", "rule": "growthremodel",
+               "density": 1.0, "constituents": [
+                   {"kind": "solid", "frac": 0.4,
+                    "material": {"type": "elasthyper", "summands": [
+                        {"type": "couplogneohooke", "youngs": 1.0e4,
+                         "nue": 0.3}]},
+                    "prestretch": [1.05, 1.0, 1.0]},
+                   *({"kind": "remodelfiber", "frac": 0.3, "k1": 3333.3,
+                      "k2": 1.5, "a": [1.0, sign * 0.3, 0.0],
+                      "lambda_pre": 1.08, "k_sig": 12.5, "decay_time": 0.16,
+                      "impl": True} for sign in (1.0, -1.0))]}
+BLEMKER_LAW = {"type": "muscle_blemker", "g1": 25.0, "g2": 25.0, "p1": 0.05,
+               "p2": 6.6, "sigma_max": 2000.0, "lambda_ofl": 1.2,
+               "lambda_star": 1.4, "alpha": 1.0, "beta": 33.3,
+               "youngs": 1.0e4, "nue": 0.3, "density": 1.0}
+BIOLOGY_PATHS = (("growthremodel_permuted", GROWTHREMODEL_LAW, {},
+                  {"lin_method": "gmres", "gmres_restart": 50,
+                   "line_search": True}, 2),
+                 ("mixture_permuted", MIXTURE_LAW, {},
+                  {"lin_method": "cg", **PLASTIC_NEWTON}, 2),
+                 ("blemker_permuted", BLEMKER_LAW, {}, {"lin_method": "cg"},
+                  2))
+
+
+def phase_biology():
+    """Phase 14: the growth, mixture and muscle laws."""
+    # (a) the five decks: anchors on the card, GPU against CPU with the
+    # history, the reference's Newton iterations, one substep per step
+    aggs = _decks_on_the_card("biology", {
+        path: ((), 3) for path in BIOLOGY_DECKS})
+    for path, (newton, steps) in BIOLOGY_DECKS.items():
+        for device, agg in aggs[path].items():
+            got = (agg["newton_iters"], agg["substeps"])
+            log("biology", f"{path} on {device}: {got[0]} Newton, {got[1]} "
+                           f"substeps, {agg['lin_iters']} Krylov (the "
+                           f"reference: {newton}, {steps})")
+            if got != (newton, steps):
+                raise RuntimeError(f"{path}: {got} Newton iterations and "
+                                   f"substeps on {device}, the reference "
+                                   f"takes {(newton, steps)}")
+    history_paths(BIOLOGY_PATHS)
+
+
 def _phase(name, fn, *args):
     """Run one phase, its name printed as it starts; a phase that raises is
     named with its exception, and the exception goes on (exit code 1)."""
@@ -1675,6 +1790,7 @@ def main():
     _phase("11 element technologies", phase_techs)
     _phase("12 history, summands, springs, constraint", phase_history)
     _phase("13 plasticity laws", phase_plasticity)
+    _phase("14 growth, mixture and muscle laws", phase_biology)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

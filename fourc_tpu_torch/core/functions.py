@@ -226,6 +226,17 @@ class SymbolicExpression:
         env.update(params)
         return _eval(self.ast, env)
 
+    def on_device(self, t: torch.Tensor):
+        """The expression at a tensor of times (one per Gauss point, say),
+        x = y = z = 0, evaluated by torch on their device in their dtype
+        (comparisons 1.0 / 0.0): a tensor of t's shape."""
+        zero = torch.zeros_like(t)
+        out = _eval(self.ast, {"x": zero, "y": zero, "z": zero, "t": t},
+                    _TORCH_FUNCS, _TORCH_BINARY)
+        if not torch.is_tensor(out):
+            out = t.new_tensor(out)
+        return out.expand(t.shape)
+
 
 @dataclass
 class FunctionOfSpaceTime:

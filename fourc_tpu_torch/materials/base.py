@@ -9,6 +9,7 @@ history (``HistoryMaterial``) takes its history in the same layout,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MATERIAL_REGISTRY: dict[str, type] = {}
@@ -75,6 +76,46 @@ class HistoryMaterial(Material):
                            device=device)
 
 
+def elastic_moduli(m):
+    """(youngs, nue) of the linear-elastic operator that SA-AMG assembles
+    for a block of law ``m``: those the law names (``elastic_moduli()``,
+    a law without its own), else its own; None where it has neither."""
+    named = getattr(m, "elastic_moduli", None)
+    if named is not None:
+        return named()
+    if hasattr(m, "youngs") and hasattr(m, "nue"):
+        return float(m.youngs), float(m.nue)
+    return None
+
+
+def dt_or_zero(dt):
+    """The dt of a law whose reference defaults it to 0.0 (the element
+    route's call without one, at the initial state)."""
+    return 0.0 if dt is None else float(dt)
+
+
+def unit_vector(a, like):
+    """``a`` normalised in float64, then cast to the dtype of ``like`` on
+    its device, as the reference's ``_unit(a).astype(dtype)``; shaped
+    (3, 1, ...) against a leading-index tensor ``like`` (3, 3, ...)."""
+    a = np.asarray(a, dtype=np.float64)
+    return torch.as_tensor(a / np.linalg.norm(a), dtype=like.dtype,
+                           device=like.device).reshape(
+                               (3,) + (1,) * (like.dim() - 2))
+
+
+def quad_form(a, C):
+    """a . (C a) of a (3, 1, ...) vector and a (3, 3, ...) tensor, in the
+    reference's order (C a first), term by term."""
+    Ca = [C[i, 0] * a[0] + C[i, 1] * a[1] + C[i, 2] * a[2] for i in range(3)]
+    return a[0] * Ca[0] + a[1] * Ca[1] + a[2] * Ca[2]
+
+
+def outer(a, b):
+    """a (x) b of two (3, ...) vectors: (3, 3, ...)."""
+    return a[:, None] * b[None]
+
+
 # The reference's return maps clip with jnp.maximum, jnp.minimum, jnp.clip
 # and jnp.abs, whose forward derivatives differ from torch's at a tie: the
 # mean of both sides (torch's clamp takes 1 at a bound, maximum and minimum
@@ -87,6 +128,11 @@ def maximum(a, b):
     """``jnp.maximum(a, b)``: at a tie the value a and the derivative the
     mean of both sides'; ``b`` a tensor or a number."""
     return torch.where(a > b, a, torch.where(a < b, b, 0.5 * (a + b)))
+
+
+def dmaximum(a, b):
+    """The derivative of ``jnp.maximum(a, b)`` in a: 1, 1/2 at a tie, 0."""
+    return torch.where(a > b, 1.0, torch.where(a < b, 0.0, 0.5))
 
 
 def minimum(a, b):

@@ -65,7 +65,7 @@ from fourc_tpu_torch.core.functions import FunctionManager
 from fourc_tpu_torch.core.mesh import Discretization
 from fourc_tpu_torch.linalg import solvers
 from fourc_tpu_torch.linalg.precond import block_jacobi, jacobi
-from fourc_tpu_torch.materials.base import HistoryMaterial
+from fourc_tpu_torch.materials.base import HistoryMaterial, elastic_moduli
 from fourc_tpu_torch.materials.elastic import lame
 from fourc_tpu_torch.ops import common as gm
 from fourc_tpu_torch.ops import lattice as _lat
@@ -718,7 +718,7 @@ class SolidField:
 
     def assemble_linear_operator(self, mass_shift=0.0, timings=None):
         """General topology: the linear-elastic stiffness of the mesh (each
-        block from its law's ``youngs`` and ``nue``) plus ``mass_shift``
+        block from its law's ``elastic_moduli``) plus ``mass_shift``
         times the lumped mass, assembled on the host as a scipy CSR matrix
         in float64, with unit rows and columns on the constrained dofs.
         The element matrices come chunk by chunk from the field's device.
@@ -728,13 +728,13 @@ class SolidField:
         t0 = time.perf_counter()
         rows, cols, vals = [], [], []
         for b in self.blocks:
-            if not hasattr(b.material, "youngs"):
+            moduli = elastic_moduli(b.material)
+            if moduli is None:
                 raise NotImplementedError(
                     f"the linear-elastic operator of block {b.key!r}: "
                     f"material {type(b.material).__name__} has no youngs "
                     f"and nue")
-            lam, mu = (float(x) for x in lame(b.material.youngs,
-                                              b.material.nue))
+            lam, mu = (float(x) for x in lame(*moduli))
             Xe = self._element_coords(b.key)
             E, nd = Xe.shape[0], 3 * b.cell.nen
             v = np.empty((E, nd, nd))

@@ -2,9 +2,10 @@
 
 Counterpart of fourc_tpu/physics/structure_driver.py for the solid field the
 port carries: hex8, tet4 and wedge6 blocks of laws with a PK2 stress
-(Neo-Hooke, SVK, ElastHyper) or with Gauss-point history
-(viscoelasthyper, plasticlinelast, plasticnlnlogneohooke), nonlinear or
-linear kinematics, tech none,
+(Neo-Hooke, SVK, ElastHyper, the mixture of such laws) or with
+Gauss-point history (viscoelasthyper, the plasticity laws, the growth,
+mixture-rule and muscle laws), nonlinear or linear kinematics (each
+history law under the one its reference has), tech none,
 fbar or eas_mild, consistent or lumped mass, statics, one-step-theta,
 gen-alpha (with Rayleigh damping) and explicit central differences, Newton
 with CG, GMRES or BiCGStab and a preconditioner (``gmg`` on a lattice,
@@ -26,7 +27,8 @@ from fourc_tpu_torch.core.cells import SOLID_CELLS, get_cell
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.core.mesh import _detect_structured
 from fourc_tpu_torch.linalg.solvers import SOLVERS
-from fourc_tpu_torch.materials import HistoryMaterial, make_material
+from fourc_tpu_torch.materials import (HistoryMaterial, elastic_moduli,
+                                       make_material)
 from fourc_tpu_torch.ops.solid import TECHS
 from fourc_tpu_torch.physics import driver as drv
 from fourc_tpu_torch.physics import solid as ps
@@ -119,7 +121,7 @@ def check_supported(deck, disc_name="structure"):
                 out.append(f"element block {key!r}: summand isoogden under "
                            f"{second} (its stress is exact to first order, "
                            f"and {second} takes its second derivative)")
-            if multigrid and not hasattr(m, "youngs"):
+            if multigrid and elastic_moduli(m) is None:
                 out.append(f"element block {key!r}: material "
                            f"{type(m).__name__} under solver.precond "
                            f"{solver['precond']!r} (SA-AMG assembles a "

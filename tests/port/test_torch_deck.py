@@ -9,8 +9,9 @@ hex8 and wedge6 decks (the F-bar one with nodal stresses).  The
 spring-dashpot deck runs with its viscosity zeroed: the reference drops the
 dashpot under one-step-theta, so its anchors are spring-only, and the deck
 as written is refused, naming the dashpot; the six decks of the other
-plasticity laws run in tests/port/test_torch_plasticity.py.  The loader is
-held against
+plasticity laws run in tests/port/test_torch_plasticity.py, the five of the
+growth, mixture and muscle laws in tests/port/test_torch_biology.py.  The
+loader is held against
 ``fourc_tpu.io.deck.load`` (numpy loading, no jit): meshes, sets, validated
 sections, conditions and FUNCTs must be identical.  Every other structure
 deck in the repository is refused with NotImplementedError before the field
@@ -66,6 +67,13 @@ PLASTICITY_DECKS = [os.path.join(ROOT, "decks", f"{name}.yaml")
                                  "lemaitre_damage_bar", "robinson_relaxation",
                                  "sma_superelastic_cycle",
                                  "crystal_plasticity_shear")]
+# the growth, mixture and muscle laws' decks, run in
+# tests/port/test_torch_biology.py
+BIOLOGY_DECKS = [os.path.join(ROOT, "decks", f"{name}.yaml")
+                 for name in ("growth_remodel_strip", "mixture_gr_artery_strip",
+                              "muscle_active_twitch",
+                              "muscle_blemker_contraction",
+                              "cardiac_active_stress_twitch")]
 # deck -> number of anchors
 GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
               TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS},
@@ -82,7 +90,8 @@ def _structure_decks():
             data = yaml.safe_load(fh)
         ptype = str((data.get("problem") or {}).get("type", "structure"))
         if (ptype.lower() == "structure" and path not in GATE_DECKS
-                and path != SPRINGS and path not in PLASTICITY_DECKS):
+                and path != SPRINGS and path not in PLASTICITY_DECKS
+                and path not in BIOLOGY_DECKS):
             out.append(path)
     return out
 
@@ -198,7 +207,8 @@ def _same_faces(got, want):
 
 
 @pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC, WEDGE6_DYNAMIC,
-                                  TET4, HEX8_FBAR, SPRINGS, HISTORY_DECKS[1]],
+                                  TET4, HEX8_FBAR, SPRINGS, HISTORY_DECKS[1],
+                                  *BIOLOGY_DECKS],
                          ids=lambda p: os.path.basename(p))
 def test_loader_matches_reference(path):
     from fourc_tpu.io import deck as jdeck

@@ -576,3 +576,75 @@ def test_ieee_functions_and_tree_sums_are_the_cpus_bitwise(cuda, dtype):
     for got, want in zip(out[cuda], out["cpu"]):
         assert (torch.equal(got, want) if torch.is_tensor(want)
                 else got == want)
+
+
+# slice 4g: the growth, mixture and muscle laws; law -> (parameters, the
+# step's dt, whether the CPU's bits are the card's: the laws whose stress
+# takes torch.log1p (NeoHooke's and ElastHyper's closed forms) round it
+# the card's way)
+BIOLOGY_LAWS = {
+    "growth_iso": ({"youngs": 100.0, "nue": 0.3, "k_growth": 0.5,
+                    "m_target": 1.0}, 0.5, False),
+    "muscle_active": ({"youngs": 200.0, "nue": 0.3, "smax": 30.0,
+                       "tau": 0.75, "fiber": [1.0, 0.2, 0.0]}, 0.25, False),
+    "growthremodel_cm": ({"youngs_elastin": 80.0, "nue": 0.3,
+                          "k_fiber": 40.0, "sigma_h": 5.0, "k_sigma": 0.4,
+                          "k_remodel": 0.4, "prestretch": 1.05}, 0.5, True),
+    "mixture_rule": ({"rule": "growthremodel", "constituents": [
+        {"kind": "solid", "frac": 0.4, "prestretch": [1.05, 1.0, 1.0],
+         "material": {"type": "elasthyper", "summands": [
+             {"type": "couplogneohooke", "youngs": 60.0, "nue": 0.3}]}},
+        {"kind": "remodelfiber", "frac": 0.3, "k1": 20.0, "k2": 1.5,
+         "a": [1.0, 0.3, 0.0], "lambda_pre": 1.08, "k_sig": 0.5,
+         "decay_time": 4.0, "impl": True},
+        {"kind": "remodelfiber", "frac": 0.3, "k1": 20.0, "k2": 1.5,
+         "a": [1.0, -0.3, 0.0], "lambda_pre": 1.08, "k_sig": 0.5,
+         "decay_time": 4.0}]}, 0.5, False),
+    "muscle_blemker": ({"g1": 0.5, "g2": 0.5, "p1": 0.05, "p2": 6.6,
+                        "sigma_max": 40.0, "lambda_ofl": 1.2,
+                        "lambda_star": 1.4, "alpha": 1.0, "beta": 2.0,
+                        "t_act_start": 0.3, "youngs": 200.0, "nue": 0.3},
+                       0.25, True),
+    "anisoactivestress": ({"youngs": 150.0, "nue": 0.3, "sigma0": 20.0,
+                           "u_expr": "4*(t <= 0.5) - 4*(t > 0.5)",
+                           "lambda_lower": 0.9, "lambda_upper": 1.2},
+                          0.125, True),
+}
+
+
+@pytest.mark.parametrize("name", list(BIOLOGY_LAWS))
+def test_biology_law_on_the_card_matches_the_cpu(cuda, name):
+    """Stress, new history and the stress's forward derivative of one
+    seeded float64 batch (C = I on a tenth of it): the card's bits are the
+    CPU's where the law takes only additions, products, divisions by
+    tensors, ``sqrt_rn`` and the ``*_ieee`` functions, else within
+    1e-13."""
+    from fourc_tpu_torch.materials import make_material
+
+    params, dt, bitwise = BIOLOGY_LAWS[name]
+    mat = make_material({"type": name, **params})
+    rng = np.random.default_rng(11)
+    n = 600
+    F = np.eye(3)[:, :, None] + rng.normal(size=(3, 3, n)) * np.geomspace(
+        1e-3, 0.3, n)
+    F[:, :, : n // 10] = np.eye(3)[:, :, None]
+    C = np.einsum("kin,kjn->ijn", F, F)
+    h0 = mat.init_history(n).numpy().T
+    h = np.where(h0 == 0.0, rng.uniform(0.0, 1.0, size=h0.shape),
+                 h0 * rng.uniform(0.8, 1.2, size=h0.shape))
+    dC = rng.normal(size=C.shape)
+    dC = 0.5 * (dC + dC.transpose(1, 0, 2))
+    out = {}
+    for device in ("cpu", cuda):
+        def t(x):
+            return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+        (s, hn), (ds, _) = torch.func.jvp(
+            lambda x: mat.evaluate(x, t(h), dt), (t(C),), (t(dC),))
+        out[device] = [x.cpu() for x in (s, hn, ds)]
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert torch.isfinite(want).all()
+        if bitwise:
+            assert torch.equal(got, want)
+        else:
+            assert _rel(got, want) <= 1e-13

@@ -14,7 +14,8 @@ under EAS with CG, chip_smoke.py phase 11 (b), (c); ``visco``, ``j2`` and
 ``lognh`` the permuted box under the history laws of chip_smoke.py phase
 12 (b)-(d), ``gtn`` and ``crystal`` under those of phase 13 (b), (c), the
 plastic ones after its elastic step that sets the yield stress or the
-slip resistance), runs
+slip resistance, ``growthremodel``, ``mixture`` and ``blemker`` under
+those of phase 14 (b)-(d)), runs
 two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
@@ -55,9 +56,10 @@ def main():
               **{name.split("_")[0]: ("permuted", "hex8", changes, newton, {
                   k: (1e30 if v is None else v) for k, v in law.items()})
                  for name, law, changes, newton, _ in (
-                     cs.HISTORY_PATHS + cs.PLASTICITY_PATHS)}}
+                     cs.HISTORY_PATHS + cs.PLASTICITY_PATHS
+                     + cs.BIOLOGY_PATHS)}}
     laws = {name.split("_")[0]: law for name, law, *_ in (
-        cs.HISTORY_PATHS + cs.PLASTICITY_PATHS)}
+        cs.HISTORY_PATHS + cs.PLASTICITY_PATHS + cs.BIOLOGY_PATHS)}
     if mesh == "explicit":
         f, step, _, dt = cs.explicit_problem(n)
         print(f"explicit n={n}: dt {dt:.4e}")
