@@ -171,7 +171,41 @@ phase):
        sigma_max 2000, beta 33.3, the deck's p1, p2, lambda_ofl,
        lambda_star; Neo-Hooke matrix E 1e4, nu 0.3), CG, 1 + 2;
    (b)-(d) print the law's mean state change (growth of rho or g from its
-   start, the activation) beside the times of phases 12 and 13.
+   start, the activation) beside the times of phases 12 and 13;
+15. thermo, scalar transport, TSI and MULF prestress:
+   (a) the seven decks decks/ref_converted/thermo_bar_dbc_genalpha.yaml,
+       thermo_fin_cooling.yaml, ref_converted/
+       scatra_3d_straight_convection.yaml, tsi_heated_bar.yaml,
+       tsi_partitioned_bar.yaml, ref_converted/
+       solid_ele_hex8_standard_mulf.yaml and mulf_prestress.yaml through
+       ``app.main.main`` on the card in float64 (3/3, 2/2, 2/2, 3/3, 3/3,
+       12/12 at 4C's values; the self-anchored MULF deck 0/3, its
+       prestressed mesh balancing its load as on the CPU), the CLI's run
+       keeping the card's states, then through ``driver.run`` on the CPU:
+       every tensor of the
+       state (d, v, a, T, Tdot, phi, phidot, the MULF prestretch) after
+       every step within DECK_TOL of its largest entry over the run, the
+       reference CLI's Newton iterations (4C's form's for MULF) on both;
+       none launches B1-B7 but the TSI decks' and MULF decks' none either
+       (statics, the element route);
+   (b) ``tsi_permuted``: phase 7's permuted box at n=56 (555,579
+       structure dofs, 185,193 temperatures) of thermostvenantkirchhoff
+       (E 1e4, nu 0.3, tsi_heated_bar's thexpans 1e-3 and, scaled with E,
+       conductivity 50 and capacity 10; T0 293), clamped at zmin, phase
+       7's traction on zmax and zmax's temperature ramped from T0 to
+       T0 + 20 over the run; structure one-step-theta (theta 0.66),
+       thermo one-step-theta (theta 1), dt 0.02; the monolithic Newton
+       with GMRES(50), SA-AMG on the structure block built by the field
+       from the law's youngs and nue, Jacobi on the temperatures; float32,
+       1 warm-up and 2 timed steps, every step converged, B6 launched
+       (the mass, mass-only) and none of B1-B5 or B7, the coupled
+       residual and Jacobian action timed by CUDA events and the largest
+       temperature rise printed;
+   (c) ``mulf_permuted``: phase 7's box under MULF around its Neo-Hooke,
+       statics, CG with SA-AMG: one prestress step under phase 7's
+       traction, then 1 + 1 steps (cut from 1 + 2 for phase 15's time),
+       none of B1-B7 launched, the largest |F0 - I| after the prestress
+       phase printed.
 
 The nodal stresses of a deck with ``stress_*`` anchors (the converted
 F-bar deck of phase 11) are compared GPU against CPU after every step like
@@ -716,6 +750,25 @@ def phase_kernels():
 NEOHOOKE = {"type": "neohooke", "youngs": 1.0e4, "nue": 0.3, "density": 1.0}
 
 
+def bench_newton(ndof, dtype):
+    """bench.py's Newton settings for a system of ndof unknowns: float64
+    to 1e-8 absolute, float32 to the rounding of its norms."""
+    from fourc_tpu_torch.physics.newton import NewtonParams
+
+    nw = NewtonParams()
+    if dtype == torch.float64:
+        nw.tol_res, nw.tol_res_rel, nw.tol_disp, nw.combine = \
+            1e-8, 0.0, 1e30, "and"
+    else:
+        nw.tol_res = 1.5e-4 * ndof ** 0.5
+        nw.tol_res_rel = 1e-4
+        nw.tol_disp = 1e-7 * ndof ** 0.5
+        nw.combine = "or"
+    nw.max_iter, nw.stag_tol = 12, 0.0
+    nw.lin_maxiter, nw.lin_rtol = 1000, 1e-4
+    return nw
+
+
 def build_problem(n, device, dtype, mesh="flagship", cell="hex8",
                   changes=None, newton=None, material=None):
     """bench.py's problem (f32 Newton settings for float32) on one of its
@@ -727,22 +780,11 @@ def build_problem(n, device, dtype, mesh="flagship", cell="hex8",
     NewtonParams fields (e.g. the linear solver), ``material`` the law's
     deck spec in place of bench.py's Neo-Hooke."""
     disc = make_mesh(n, mesh, cell)
-    ndof = disc.n_nodes * 3
     mat = materials.make_material(dict(material or NEOHOOKE))
     params = ps.SolidParams(kinem="nonlinear", dyntype="genalpha",
                             genalpha=ps.GenAlphaParams(rho_inf=0.9),
                             precond="gmg", predictor="constdis")
-    nw = params.newton
-    if dtype == torch.float64:
-        nw.tol_res, nw.tol_res_rel, nw.tol_disp, nw.combine = \
-            1e-8, 0.0, 1e30, "and"
-    else:
-        nw.tol_res = 1.5e-4 * ndof ** 0.5
-        nw.tol_res_rel = 1e-4
-        nw.tol_disp = 1e-7 * ndof ** 0.5
-        nw.combine = "or"
-    nw.max_iter, nw.stag_tol = 12, 0.0
-    nw.lin_maxiter, nw.lin_rtol = 1000, 1e-4
+    nw = params.newton = bench_newton(disc.n_nodes * 3, dtype)
     for key, val in (changes or {}).items():
         setattr(params, key, val)
     for key, val in (newton or {}).items():
@@ -1761,6 +1803,282 @@ def phase_biology():
     history_paths(BIOLOGY_PATHS)
 
 
+# phase 15 (a): deck -> (anchors met, anchors, the reference CLI's Newton
+# iterations; 4C's form's for the two MULF decks, tests/port)
+FIELD_DECKS = {"decks/ref_converted/thermo_bar_dbc_genalpha.yaml": (3, 3, 100),
+               "decks/thermo_fin_cooling.yaml": (2, 2, 97),
+               "decks/ref_converted/scatra_3d_straight_convection.yaml":
+                   (2, 2, 1),
+               "decks/tsi_heated_bar.yaml": (3, 3, 70),
+               "decks/tsi_partitioned_bar.yaml": (3, 3, 2044),
+               "decks/ref_converted/solid_ele_hex8_standard_mulf.yaml":
+                   (12, 12, 42),
+               "decks/mulf_prestress.yaml": (0, 3, 0)}
+
+
+def _state_tensors(st):
+    """Every tensor of a state (the history's by block), on the host."""
+    out = {}
+    for k, v in st.items():
+        if torch.is_tensor(v):
+            out[k] = v.detach().cpu().clone()
+        elif isinstance(v, dict):
+            out.update({f"{k} {kk}": vv.detach().cpu().clone()
+                        for kk, vv in v.items()})
+    return out
+
+
+@contextlib.contextmanager
+def _recording(states):
+    """``driver.run`` keeps every state's tensors in ``states`` after every
+    step while the block runs (the CLI's own run on the card), and leaves
+    its result in ``recorded.result``."""
+    run = driver.run
+
+    def recorded(src, callbacks=None, device="cuda"):
+        recorded.result = run(src, device=device, callbacks=[
+            *(callbacks or ()),
+            lambda _, st, __: states.append(_state_tensors(st))])
+        return recorded.result
+
+    driver.run = recorded
+    try:
+        yield recorded
+    finally:
+        driver.run = run
+
+
+def _field_decks_on_the_card():
+    """Phase 15 (a): each deck through the CLI on the card (its anchors as
+    FIELD_DECKS says; the CLI's own ``driver.run`` keeps the card's states),
+    then through ``driver.run`` on the CPU: every state tensor after every
+    step within DECK_TOL of its largest entry over the run, the reference's
+    Newton iterations on both."""
+    for path, (met, n_tests, newton) in FIELD_DECKS.items():
+        t0 = time.perf_counter()
+        reset_launches()
+        runs, aggs = {"cuda": [], "cpu": []}, {}
+        with _recording(runs["cuda"]) as card:
+            rc, out = _cli([path, "--device", "cuda"])
+        counts = launches()
+        if (f"result tests: {met}/{n_tests} passed" not in out
+                or rc != (0 if met == n_tests else 1)):
+            raise RuntimeError(f"{path}: rc {rc}, not {met}/{n_tests} "
+                               f"anchors met on the card")
+        t_cli = time.perf_counter() - t0
+        aggs["cuda"] = card.result.stats[next(iter(card.result.stats))]
+        res = driver.run(path, device="cpu", callbacks=[
+            lambda _, st, __: runs["cpu"].append(_state_tensors(st))])
+        aggs["cpu"] = res.stats[next(iter(res.stats))]
+        if len(runs["cuda"]) != len(runs["cpu"]):
+            raise RuntimeError(f"{path}: {len(runs['cuda'])} steps on the "
+                               f"card, {len(runs['cpu'])} on the CPU")
+        errs = {}
+        for k in runs["cpu"][0]:
+            diff = max(float((g[k] - c[k]).abs().max())
+                       for g, c in zip(runs["cuda"], runs["cpu"]))
+            scale = max(float(c[k].abs().max()) for c in runs["cpu"])
+            errs[k] = diff / scale if scale else diff
+        got = {d: a["newton_iters"] for d, a in aggs.items()}
+        log("fields", f"{path} float64: {met}/{n_tests} anchors on the card "
+                      f"(CLI {t_cli:.1f} s); newton {got['cuda']}, linear "
+                      f"solver {aggs['cuda']['lin_iters']} on the card (CPU: "
+                      f"{got['cpu']}, {aggs['cpu']['lin_iters']}; the "
+                      f"reference: {newton}); GPU vs CPU over "
+                      f"{len(runs['cpu'])} steps, max rel err "
+                      + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                      + f" (tol {DECK_TOL:g}); card ms/step "
+                      f"{1e3 * aggs['cuda']['walltime'] / aggs['cuda']['steps']:.1f}"
+                      f"; launches {({k: c for k, c in counts.items() if c}) or 'none of B1-B7'}")
+        if not max(errs.values()) <= DECK_TOL:
+            raise RuntimeError(f"{path}: GPU run disagrees with the CPU run")
+        if set(got.values()) != {newton}:
+            raise RuntimeError(f"{path}: {got} Newton iterations, the "
+                               f"reference takes {newton}")
+        if any(counts.values()):
+            raise RuntimeError(f"{path}: launches {counts}")
+
+
+# phase 15 (b): tsi_heated_bar's law at phase 7's E and nu (conductivity
+# and capacity scaled with E, so the diffusivity k / (rho c) stays 5)
+TSI_LAW = {"type": "thermostvenantkirchhoff", "youngs": 1.0e4, "nue": 0.3,
+           "thexpans": 1e-3, "inittemp": 293.0, "conductivity": 50.0,
+           "capacity": 10.0, "density": 1.0}
+TSI_STEPS, TSI_DT, TSI_RISE = 3, 0.02, 20.0
+
+
+def tsi_problem(n, device, dtype, n_steps=TSI_STEPS, dt=TSI_DT):
+    """``tsi_permuted``: the permuted box of phase 7 as a monolithic TSI
+    field (TSI_LAW; one-step-theta 0.66 / 1.0; zmin clamped, phase 7's
+    traction on zmax, zmax's temperature T0 + TSI_RISE t / (n_steps dt));
+    bench.py's float32 Newton settings with GMRES(50), SA-AMG (``amg``) on
+    the structure and Jacobi on the temperatures."""
+    from fourc_tpu_torch.physics import scalar_transport as st
+    from fourc_tpu_torch.physics import tsi
+
+    disc = make_mesh(n, "permuted")
+    mat = materials.make_material(dict(TSI_LAW))
+    nw = bench_newton(4 * disc.n_nodes, dtype)  # the coupled system's size
+    nw.lin_method, nw.gmres_restart = "gmres", 50
+    params = ps.SolidParams(kinem="nonlinear", dyntype="onesteptheta",
+                            theta=0.66, precond="amg", predictor="constdis",
+                            newton=nw)
+    fm = functions.FunctionManager()
+    fm.add(1, "sin(50.0*t)*(1-exp(-t/0.06))")
+    T0 = TSI_LAW["inittemp"]
+    fm.add(2, f"{T0!r}+{TSI_RISE!r}*t/{n_steps * dt!r}")
+    solid = ps.SolidField(
+        disc, {1: mat}, params,
+        dirichlet=[conditions.DirichletBC(disc.node_sets["zmin"], [1, 1, 1],
+                                          [0, 0, 0])],
+        neumann=[conditions.NeumannBC(disc.face_sets["zmax"], [1, 0, 0],
+                                      [400.0, 0, 0], funct=[1, 0, 0])],
+        functions=fm, device=device, dtype=dtype, general=True)
+    thermo = st.ScalarField(
+        disc, {1: mat}, st.ScalarParams(dyntype="onesteptheta", theta=1.0,
+                                        dt=dt, newton=nw),
+        dirichlet=[conditions.DirichletBC(disc.node_sets["zmax"], [1], [1.0],
+                                          [2])],
+        functions=fm, device=device, dtype=dtype)
+    return tsi.TsiField(solid, thermo, tsi.TsiParams(dt=dt))
+
+
+def _fields_path(name, f, state, step, n_steps, kernels, after):
+    """Warm-up and ``n_steps`` timed steps of a phase 15 path (the launches
+    counted from the warm-up on), every step converged, then ``after``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    state, stats = step(state)
+    torch.cuda.synchronize()
+    log(name, f"warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms: "
+              f"{stats}")
+    timed = []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, st_ = step(state)
+        timed.append(st_)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    counts = launches()
+    for i, st_ in enumerate([stats] + timed):
+        log(name, f"step {i}: newton {st_['iters']}, linear solver "
+                  f"{st_['lin_iters']}, resnorm {st_['resnorm']:.4e}, "
+                  f"converged {st_['converged']}")
+        if not (st_["converged"] and np.isfinite(st_["resnorm"])):
+            raise RuntimeError(f"{name} step {i} did not converge")
+    log(name, f"{ms:.1f} ms/step over {n_steps} timed steps "
+              f"({sum(s['iters'] for s in timed)} Newton, "
+              f"{sum(s['lin_iters'] for s in timed)} linear solver "
+              f"iterations in total), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {counts}")
+    _check_launched(f"the {name} path", None, counts, kernels)
+    after(state)
+    return state
+
+
+def phase_fields(tsi_steps=TSI_STEPS - 1, mulf_steps=1):
+    """Phase 15: thermo, scalar transport, TSI and MULF prestress."""
+    from fourc_tpu_torch.physics import tsi_driver as td
+
+    _field_decks_on_the_card()
+    # (b) tsi_permuted
+    n = FULL_N["permuted"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = tsi_problem(n, "cuda", torch.float32)
+    state = td.init_state(f)
+    step = td.make_step(f, TSI_DT)
+    torch.cuda.synchronize()
+    log("tsi_permuted", f"n={n}: {f.nd} structure dofs, {f.nt} "
+                        f"temperatures, field and initial state "
+                        f"{time.perf_counter() - t0:.1f} s; "
+                        f"nvidia-smi: {_smi()}")
+
+    def after_tsi(st):
+        c = td.CoupledStep(f, st, TSI_DT)
+        y = f.join(st["d"], st["T"])
+        v = torch.randn_like(y) * 1e-2
+        rise = float((st["T"] - TSI_LAW["inittemp"]).abs().max())
+        log("tsi_permuted", f"largest temperature rise {rise:.4f} K "
+                            f"(zmax at {TSI_RISE * (tsi_steps + 1) / TSI_STEPS:.4f});"
+                            f" max|d| {float(st['d'].abs().max()):.4e}")
+        if not (torch.isfinite(y).all() and rise > 0):
+            raise RuntimeError("tsi_permuted: non-finite state or no "
+                               "heating")
+        log("tsi_permuted", "ms per call (device, CUDA events, float32): "
+            f"coupled residual {_time(lambda: c.residual(y), reps=5):.3f}, "
+            f"Jacobian action {_time(lambda: c.jacobian(y, v), reps=5):.3f},"
+            f" structure mass (B6) {_time(lambda: f.solid.mass_matvec(st['d']), reps=5):.3f}")
+        # the law's strain derivative by forward mode instead of its
+        # pk2_from_E at the increment (Material.affine_in_strain)
+        law = type(f.solid.block_mat[next(iter(f.solid.block_mat))])
+        law.affine_in_strain = False
+        try:
+            fwd = _time(lambda: c.jacobian(y, v), reps=5)
+        finally:
+            law.affine_in_strain = True
+        log("tsi_permuted", "ms per call, Jacobian action with the law's "
+            f"strain derivative by forward mode {fwd:.3f}")
+        # the thermo rows' derivative: its linear part (the port's) against
+        # forward mode through the residual (the reference's jax.jvp)
+        d, T = f.split(y)
+        vd, vT = f.split(v)
+        log("tsi_permuted", "ms per call, thermo rows' derivative: linear "
+            f"part {_time(lambda: c.thermo_tangent(vd, vT), reps=5):.3f}, "
+            "forward mode "
+            f"{_time(lambda: torch.func.jvp(c.thermo, (d, T), (vd, vT)), reps=5):.3f}")
+
+    t0 = time.perf_counter()
+    M = f.block_precond(state["d"], TSI_DT, td._mass_shift(f, TSI_DT),
+                        td._thermo_factor(f, TSI_DT))  # builds, keeps SA-AMG
+    torch.cuda.synchronize()
+    log("tsi_permuted", f"SA-AMG setup {time.perf_counter() - t0:.2f} s")
+    del M
+    _fields_path("tsi_permuted", f, state, step, tsi_steps, {"solid_force"},
+                 after_tsi)
+    # (c) mulf_permuted
+    del f, state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = build_problem(n, "cuda", torch.float32, "permuted",
+                      changes={"dyntype": "statics", "precond": "amg"},
+                      newton={"lin_method": "cg"},
+                      material={"type": "mulf",
+                                "material": dict(NEOHOOKE)})
+    state = ps.compute_initial_state(f, ps.init_state(f))
+    step = ps.make_step(f, dt=0.02)
+    torch.cuda.synchronize()
+    log("mulf_permuted", f"n={n}: {f.ndof} dofs, field, initial state and "
+                         f"SA-AMG {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    state, stats = step(state)
+    state = ps.update_prestress(f, state)
+    torch.cuda.synchronize()
+    key = f.blocks[0].key
+    F0 = state["hist"][key]
+    dev = float((F0 - torch.eye(3, device=F0.device,
+                                dtype=F0.dtype).reshape(9)).abs().max())
+    log("mulf_permuted", f"prestress step {1e3 * (time.perf_counter() - t0):.1f}"
+                         f" ms: newton {stats['iters']}, cg "
+                         f"{stats['lin_iters']}, converged "
+                         f"{stats['converged']}; largest |F0 - I| {dev:.4e}")
+    if not (stats["converged"] and 0.0 < dev < 1.0):
+        raise RuntimeError(f"mulf_permuted: prestress step {stats}, "
+                           f"|F0 - I| {dev}")
+
+    def after_mulf(st):
+        d = st["d"]
+        log("mulf_permuted", f"max|d| after the prestress "
+                             f"{float(d.abs().max()):.4e}")
+        if not torch.isfinite(d).all():
+            raise RuntimeError("mulf_permuted: non-finite d")
+
+    _fields_path("mulf_permuted", f, state, step, mulf_steps, set(),
+                 after_mulf)
+
+
 def _phase(name, fn, *args):
     """Run one phase, its name printed as it starts; a phase that raises is
     named with its exception, and the exception goes on (exit code 1)."""
@@ -1791,6 +2109,7 @@ def main():
     _phase("12 history, summands, springs, constraint", phase_history)
     _phase("13 plasticity laws", phase_plasticity)
     _phase("14 growth, mixture and muscle laws", phase_biology)
+    _phase("15 thermo, TSI and MULF", phase_fields)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

@@ -113,3 +113,25 @@ def amg_from_jax(M):
             data[f"l{i}_{nm}_blk"] = np.asarray(op.blk)
             data[f"l{i}_{nm}_ncols"] = np.asarray(op.n_cols)
     return data
+
+
+def scalar_state_from_jax(state):
+    """JAX scalar-field state (scatra or thermo) -> the port's: ``phi``,
+    ``phidot`` and ``phi_nm1`` (one scalar per node, the same flat layout
+    in both packages), the time and the step counter."""
+    out = {k: np.array(state[k], np.float64)
+           for k in ("phi", "phidot", "phi_nm1")}
+    out["t"] = float(np.asarray(state["t"]))
+    out["step"] = int(np.asarray(state["step"]))
+    return out
+
+
+def tsi_state_from_jax(state):
+    """JAX TSI state -> the port's: the structure's flat ``d``, ``v``,
+    ``a``, ``fint``, ``fext`` and its Gauss-point history (block key ->
+    (E, g, nh)), the nodal temperatures ``T`` and their rates ``Tdot``,
+    the time and the step counter."""
+    out = state_from_jax(state, None)
+    for k in ("T", "Tdot"):
+        out[k] = np.array(state[k], np.float64)
+    return out

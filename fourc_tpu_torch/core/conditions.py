@@ -3,8 +3,8 @@
 Counterpart of fourc_tpu/core/conditions.py.  The free/fixed split is a bool
 mask over the flat dof vector; prescribed values are evaluated on the host
 at each time (numpy) and moved to the device where they are applied.
-``DirichletHandler.rates`` (the analytic time derivative of the prescribed
-values) is not on the lattice slice's path and is not ported yet.
+``DirichletHandler.rates`` gives their exact time derivative, by forward
+mode in t through the FUNCTs' torch evaluation on the device.
 """
 
 from __future__ import annotations
@@ -113,3 +113,33 @@ class DirichletHandler:
     def mask(self, r: torch.Tensor) -> torch.Tensor:
         """Zero constrained entries of a flat dof vector."""
         return torch.where(self._free_on(r), r, 0.0)
+
+    def rates(self, t, like: torch.Tensor) -> torch.Tensor:
+        """The exact time derivative d/dt u_D(t) of the prescribed values,
+        zero on free dofs, as a tensor of ``like``'s dtype and device: each
+        FUNCT (the piece of a multifunction that holds at t) evaluated by
+        torch at its nodes and differentiated in t by ``torch.func.jvp``,
+        as the reference takes ``jax.jvp`` in t (the rate vector that
+        4C's scatra and thermo steps fill on Dirichlet rows)."""
+        out = torch.zeros(self.free_mask.shape[0], dtype=like.dtype,
+                          device=like.device)
+        t0 = torch.tensor(float(t), dtype=like.dtype, device=like.device)
+        for f, dofs, xyz, amp, comps in self._groups:
+            fn = self._functions.get(f).at_time(t)
+            x = torch.as_tensor(xyz, dtype=like.dtype, device=like.device)
+            comp = np.minimum(comps, len(fn.components) - 1)
+            rate = torch.empty(len(dofs), dtype=like.dtype,
+                               device=like.device)
+            for c in np.unique(comp):
+                sel = np.nonzero(comp == c)[0]
+                _, dv = torch.func.jvp(
+                    lambda tt: fn.on_device(x[sel], tt, component=int(c)),
+                    (t0,), (torch.ones_like(t0),))
+                rate[torch.as_tensor(sel, device=like.device)] = dv
+            amp_t = torch.as_tensor(amp, dtype=like.dtype, device=like.device)
+            out[torch.as_tensor(dofs, device=like.device)] = amp_t * rate
+        return out
+
+    def apply_rates(self, udot: torch.Tensor, t) -> torch.Tensor:
+        """Overwrite constrained dofs of a rate vector with d/dt u_D(t)."""
+        return torch.where(self._free_on(udot), udot, self.rates(t, udot))

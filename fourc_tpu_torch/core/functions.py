@@ -4,7 +4,9 @@ Counterpart of fourc_tpu/core/functions.py: the same tokenizer and
 recursive-descent parser, evaluated with numpy on host floats and arrays
 (prescribed values and surface loads), or with torch on a tensor of
 coordinates on its device (body forces, whose Gauss points cover the whole
-mesh: ``FunctionOfSpaceTime.on_device``).
+mesh: ``FunctionOfSpaceTime.on_device``).  ``MultiFunctionOfTime`` is the
+reference's piecewise-in-time FUNCT, with the knot and range rules of
+``MultiFunctionOfTime.piece``.
 """
 
 from __future__ import annotations
@@ -268,23 +270,99 @@ class FunctionOfSpaceTime:
 
     def on_device(self, coords: torch.Tensor, t, component=0):
         """One component at a tensor of coordinates (..., 3), evaluated by
-        torch on their device in their dtype: (...)."""
+        torch on their device in their dtype: (...).  ``t`` a number or a
+        0-d tensor (``torch.func.jvp`` in t: ``DirichletHandler.rates``)."""
         env = {"x": coords[..., 0], "y": coords[..., 1],
-               "z": coords[..., 2], "t": coords.new_tensor(float(t))}
+               "z": coords[..., 2],
+               "t": t if torch.is_tensor(t) else coords.new_tensor(float(t))}
         c = self.components[min(component, len(self.components) - 1)]
         out = _eval(c.ast, env, _TORCH_FUNCS, _TORCH_BINARY)
         if not torch.is_tensor(out):
             out = coords.new_tensor(out)
         return out.expand(coords.shape[:-1])
 
+    def at_time(self, t):
+        """The function that holds at time t (a number): itself."""
+        return self
+
+
+class MultiFunctionOfTime:
+    """A piecewise-in-time FUNCT (the reference's ``multifunction``: knot
+    times t_0 < ... < t_n and one expression of x, y, z, t per interval).
+
+    The reference returns 0 outside [t_0, t_n] and compares times with the
+    knots exactly, so a time that rounds a hair past a knot takes the next
+    piece.  Here a time outside the range raises, naming the function, and
+    a time within ``KNOT_TOL`` (relative) of an interior knot is that knot,
+    whose piece is the interval that ends there (left-open, right-closed,
+    t_0 in the first), as 4C's segment search takes the first interval
+    whose end is not below t; the rate at the knot is then the left
+    piece's."""
+
+    KNOT_TOL = 1e-12
+
+    def __init__(self, times, pieces, name="multifunction"):
+        if len(pieces) != len(times) - 1:
+            raise ValueError("multifunction needs len(times)-1 pieces")
+        self.times = [float(v) for v in times]
+        if any(b <= a for a, b in zip(self.times, self.times[1:])):
+            raise ValueError(f"{name}: knot times must increase")
+        self.name = name
+        self.pieces = [FunctionOfSpaceTime([SymbolicExpression(str(p))])
+                       for p in pieces]
+        self.components = [self]
+
+    def piece(self, t) -> int:
+        """The index of the piece that holds at time t (a number)."""
+        t = float(t)
+
+        def near(knot):  # t is the knot, to KNOT_TOL relative
+            return abs(t - knot) <= self.KNOT_TOL * max(1.0, abs(knot))
+
+        lo, hi = self.times[0], self.times[-1]
+        if not (lo <= t <= hi or near(lo) or near(hi)):
+            raise ValueError(
+                f"{self.name}: t = {t!r} lies outside its time range "
+                f"[{lo!r}, {hi!r}]")
+        for i, end in enumerate(self.times[1:-1]):
+            if t <= end or near(end):
+                return i
+        return len(self.pieces) - 1
+
+    def at_time(self, t):
+        """The piece that holds at time t, as a FunctionOfSpaceTime."""
+        return self.pieces[self.piece(t)]
+
+    def __call__(self, coords, t, component=None):
+        """The piece's value at (coords, t), (...): one component, as the
+        reference's."""
+        return self.at_time(t)(coords, t, component=0)
+
+    def on_device(self, coords: torch.Tensor, t, component=0):
+        """``FunctionOfSpaceTime.on_device`` of the piece that holds at t
+        (a number; ``DirichletHandler.rates`` differentiates the piece
+        itself, from ``at_time``)."""
+        return self.at_time(t).on_device(coords, t, component)
+
 
 class FunctionManager:
-    """FUNCT table by positive integer id; id 0 / None means constant 1."""
+    """FUNCT table by positive integer id; id 0 / None means constant 1.
+    A spec ``{"multifunction": {"times": [...], "pieces": [...]}}`` is a
+    ``MultiFunctionOfTime``."""
 
     def __init__(self):
         self._funcs: dict[int, FunctionOfSpaceTime] = {}
 
     def add(self, fid: int, spec):
+        if isinstance(spec, dict):
+            if set(spec) != {"multifunction"}:
+                raise NotImplementedError(
+                    f"functions.{fid}: {sorted(spec)} is not ported "
+                    f"(expressions of x, y, z, t and multifunction are)")
+            mf = spec["multifunction"]
+            self._funcs[int(fid)] = MultiFunctionOfTime(
+                mf["times"], mf["pieces"], name=f"FUNCT {fid}")
+            return
         self._funcs[int(fid)] = FunctionOfSpaceTime.from_spec(spec)
 
     def get(self, fid) -> FunctionOfSpaceTime:

@@ -1,19 +1,25 @@
-"""Input decks: YAML with the reference's section semantics, structure subset.
+"""Input decks: YAML with the reference's section semantics, the subset of
+the structure, thermo, scatra and TSI problems.
 
 Counterpart of fourc_tpu/io/deck.py for the decks the port runs: the same
 schema (``param``/``group``/``validate``/``describe``), the same defaults
 and the same ValueError on a malformed deck, for the sections of a
-structure problem (``problem``, ``structural_dynamic``, ``solver``, ``io``,
-``materials``, ``functions``, ``geometry``, ``conditions``,
-``result_description``, ``title``).  Geometry comes from the ``box``
+structure, thermo, scatra or TSI problem (``problem``,
+``structural_dynamic``, ``thermal_dynamic``, ``scatra_dynamic``,
+``tsi_dynamic``, ``solver``, ``io``, ``materials``, ``functions`` (an
+expression per component, or a ``multifunction`` of time), ``geometry``,
+``conditions`` (a condition's ``field`` names the field it acts on, e.g.
+``thermo`` on a TSI deck's one mesh), ``result_description``, ``title``).
+Geometry comes from the ``box``
 generator (with ``jitter`` and ``permute``) or from explicit ``nodes``,
 ``elements``, ``node_sets`` and ``face_sets``; conditions are ``dirichlet``,
 ``neumann``, ``body_force``, ``spring_dashpot`` and ``constraint`` (its
 faces and nodes resolved to the mesh's sets, the rest as written; the
 structure driver refuses the kinds it does not carry).  Whatever else the
 reference reads (another field's section, another generator, ``exodus``, two generators of one mesh, another
-condition kind, a problem type other than structure) raises
-NotImplementedError naming it as not ported.
+condition kind, a problem type other than structure, thermo, scatra and
+tsi, a FUNCT of another kind) raises NotImplementedError naming it as not
+ported.
 
 Deck layout (one YAML document):
 
@@ -223,6 +229,23 @@ DECK_SPEC = {
     "structural_dynamic": _dyn_spec(
         "statics", ("statics", "onesteptheta", "genalpha", "explicit")
     ),
+    "scatra_dynamic": _dyn_spec("onesteptheta", ("stationary", "onesteptheta",
+                                                 "bdf2", "genalpha")),
+    "thermal_dynamic": _dyn_spec("statics", ("statics", "onesteptheta",
+                                             "genalpha")),
+    "tsi_dynamic": group(
+        {
+            "coupling": param(str, "monolithic",
+                              choices=("oneway", "partitioned", "monolithic")),
+            "timestep": param(float, 1.0),
+            "numstep": param(int, 1),
+            "maxiter": param(int, 20),
+            "tolres": param(float, 1e-8),
+            "itemax_outer": param(int, 20),
+            "convtol_outer": param(float, 1e-8),
+        },
+        doc="TSI DYNAMIC",
+    ),
     "solver": group(
         {
             "method": param(str, "cg", choices=("cg", "gmres", "bicgstab", "direct")),
@@ -260,16 +283,17 @@ DECK_SPEC = {
 # sections of the reference's schema that belong to other fields or
 # problems, none of them ported
 UNPORTED_SECTIONS = (
-    "scatra_dynamic", "thermal_dynamic", "poro_pressure_dynamic",
+    "poro_pressure_dynamic",
     "fluid_dynamic", "fsi_dynamic", "ssi_dynamic", "xfluid_dynamic",
     "xfsi_dynamic", "ale_dynamic", "levelset_dynamic", "particle_dynamic",
     "brownian_dynamics", "fbi_dynamic", "immersed_dynamic", "fpsi_dynamic",
     "fs3i_dynamic", "ehl_dynamic", "sti_dynamic", "ssti_dynamic",
     "cardiovascular0d", "artery_dynamic", "loma_dynamic",
     "porofluid_dynamic", "airway_dynamic", "cardiac_dynamic",
-    "lubrication_dynamic", "poroelasticity_dynamic", "tsi_dynamic",
+    "lubrication_dynamic", "poroelasticity_dynamic",
     "cloning", "particles",
 )
+PROBLEM_TYPES = ("structure", "thermo", "scatra", "tsi")  # the ported ones
 UNPORTED_GENERATORS = ("line", "sheet", "kl_patch", "nurbs_patch", "rectangle")
 UNPORTED_CONDITIONS = (
     "fsi_interface", "point_neumann", "ale_dirichlet",
@@ -311,19 +335,15 @@ def load(src) -> Deck:
         if key in (data or {}):
             raise NotImplementedError(
                 f"deck section {key!r} is not ported (the port runs "
-                f"structure problems)")
+                f"{', '.join(PROBLEM_TYPES)} problems)")
     cfg = validate(DECK_SPEC, data)
-    if cfg["problem"]["type"] != "structure":
+    if cfg["problem"]["type"] not in PROBLEM_TYPES:
         raise NotImplementedError(
             f"problem type {cfg['problem']['type']!r} is not ported "
-            f"(structure is)")
+            f"({', '.join(PROBLEM_TYPES)} are)")
 
     functions = FunctionManager()
     for fid, expr in (cfg.get("functions") or {}).items():
-        if isinstance(expr, dict):
-            raise NotImplementedError(
-                f"functions.{fid}: {sorted(expr)} is not ported (expressions "
-                f"of x, y, z, t are)")
         functions.add(int(fid), expr)
 
     disc = _build_geometry(cfg.get("geometry") or {})

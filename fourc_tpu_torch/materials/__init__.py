@@ -2,7 +2,8 @@
 
 from fourc_tpu_torch.materials import (elastic, elasthyper,  # noqa: F401
                                        growth, mixture, muscle, plasticity,
-                                       small_strain, viscoelastic)
+                                       scatra, small_strain, thermal,
+                                       viscoelastic)
 from fourc_tpu_torch.materials.base import (MATERIAL_REGISTRY,  # noqa: F401
                                             HistoryMaterial, Material,
                                             elastic_moduli, make_material)

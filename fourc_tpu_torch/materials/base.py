@@ -24,6 +24,18 @@ def register_material(name):
     return deco
 
 
+# laws of the fields the port carries that it refuses, with the reason
+_MULTI = "multi-species scalar transport (ndpn > 1)"
+UNPORTED_MATERIALS = {
+    "scatra_stvenantkirchhoff": "scatra-structure interaction",
+    "matlist": _MULTI, "matlist_reactions": _MULTI,
+    "scatra_reaction": "coupled reactions of " + _MULTI,
+    "soret": "thermodiffusion of scatra-thermo interaction",
+    "ion": "electrochemistry", "newman": "electrochemistry",
+    "electrode": "electrochemistry",
+}
+
+
 def make_material(spec: dict):
     """Create a material from a deck spec ``{"type": name, **params}``."""
     spec = {k.lower(): v for k, v in spec.items()}
@@ -34,6 +46,9 @@ def make_material(spec: dict):
             except ValueError:
                 pass
     typ = str(spec.pop("type")).lower()
+    if typ in UNPORTED_MATERIALS:
+        raise NotImplementedError(
+            f"material type {typ!r} is not ported ({UNPORTED_MATERIALS[typ]})")
     try:
         cls = MATERIAL_REGISTRY[typ]
     except KeyError:
@@ -44,9 +59,14 @@ def make_material(spec: dict):
 
 
 class Material:
-    """Base for all materials; ``history_shape`` () means no history."""
+    """Base for all materials; ``history_shape`` () means no history.
+    ``affine_in_strain``: the stress is affine in the strain, so
+    ``pk2_from_E`` of an increment (and no temperature) is its derivative
+    along it at any strain and temperature (the element route's tangent,
+    ``ops.solid._law_derivative``)."""
 
     history_shape: tuple = ()
+    affine_in_strain: bool = False
 
     @classmethod
     def from_deck(cls, params: dict):

@@ -1,10 +1,10 @@
 """Elasto-plastic laws with Gauss-point history.
 
-Counterpart of fourc_tpu/materials/plasticity.py but its thermoplastic law
-(which needs per-Gauss-point temperatures): small-strain J2
+Counterpart of fourc_tpu/materials/plasticity.py: small-strain J2
 (plasticlinelast), Perzyna viscoplasticity, Drucker-Prager, Lemaitre
-damage, Gurson-Tvergaard-Needleman, superelastic SMA and Robinson's
-viscoplasticity under linear kinematics; log-strain J2
+damage, Gurson-Tvergaard-Needleman, superelastic SMA, Robinson's
+viscoplasticity and thermoplastic J2 under linear kinematics (the last two
+take per-Gauss-point temperatures under TSI, ``needs_temp``); log-strain J2
 (plasticnlnlogneohooke) and crystal plasticity under nonlinear kinematics.
 Each is batched over every Gauss point in the leading-index layout:
 strains (3, 3, ...), history (nh, ...), the reference's history layout.
@@ -433,10 +433,11 @@ class Robinson(HistoryMaterial):
     h, dt)`` where the law reads ``evaluate_small(eps, h, T=None,
     dt=1.0)``: the step's dt lands on T, and the flow takes dt = 1.  The
     port does not carry that fault over: ``evaluate_small`` is the law at
-    the step's dt and no temperature.  Per-Gauss-point temperatures (TSI)
-    are not ported."""
+    the step's dt and, under TSI, the Gauss points' temperatures T (the
+    reference's TSI call passes both in their places)."""
 
     history_shape = (18,)
+    needs_temp = True
 
     def __init__(self, youngs, nue, k0, a_flow=1.0, n_exp=2.0, hard=0.0,
                  recov=0.0, omega_t=0.0, t_ref=0.0, density=0.0):
@@ -450,26 +451,26 @@ class Robinson(HistoryMaterial):
 
     def evaluate_small(self, eps, h, dt=None, T=None):
         """eps (3, 3, ...), h (18, ...) -> (sigma, h_new) at the step dt
-        (None: the reference's default 1, the initial state) and t_ref."""
-        if T is not None:
-            raise NotImplementedError(
-                "robinson with per-Gauss-point temperatures (TSI) is not "
-                "ported")
-        return self.return_map(eps, h, dt=_dt(dt))
+        (None: the reference's default 1, the initial state) and the
+        temperatures T (shaped like the batch, or None: t_ref)."""
+        return self.return_map(eps, h, T=T, dt=_dt(dt))
 
     def return_map(self, eps, h, T=None, dt=1.0):
-        """The law at a uniform temperature T (None: t_ref) and step dt."""
+        """The law at the temperature T (a number, a tensor shaped like the
+        batch, or None: t_ref) and step dt."""
         G = self.G
         batch = eps.shape[2:]
         eye = gm.eye3l(eps)
-        dT = 0.0 if T is None else float(T) - self.t_ref
+        dT = 0.0 if T is None else T - self.t_ref
         eps_p, back = _mat(h, 0, batch), _mat(h, 9, batch)
         ee = eps - eps_p
         tr_e = gm.tr3l(ee)
         s_tr = 2.0 * G * (ee - tr_e * THIRD * eye)
         xi = s_tr - back
         j2 = 0.5 * _norm3l(xi)
-        kT = max(self.k0 * (1.0 - self.omega_t * dT), 0.01 * self.k0)
+        kT = self.k0 * (1.0 - self.omega_t * dT)
+        kT = (maximum(kT, 0.01 * self.k0) if torch.is_tensor(kT)
+              else max(kT, 0.01 * self.k0))
         F = j2 * (1.0 / (kT * kT)) - 1.0
         dgamma = dt * self.a_flow * gm.pow_ieee(maximum(F, 0.0), self.n_exp)
         norm_xi = gm.sqrt_rn(2.0 * j2 + 1e-30)
@@ -483,6 +484,49 @@ class Robinson(HistoryMaterial):
         sig = self.K * tr_e * eye + s_tr - 2.0 * G * deps_p
         return sig, torch.cat([_flat(eps_p + deps_p, batch),
                                _flat(back_new, batch)])
+
+
+@register_material("thermoplastic_j2")
+class ThermoPlasticJ2(HistoryMaterial):
+    """Small-strain J2 plasticity with linear thermal softening of the
+    yield stress, sigma_y(T) = sigma_y0 (1 - omega_t (T - t_ref)) (floored
+    at 1e-8 sigma_y0), and a thermal eigenstrain alpha_t (T - t_ref) I,
+    radial return on the thermal-strain-free strain; linear isotropic
+    hardening.  History [eps_p (9), alpha] = 10.  T is the Gauss points'
+    temperatures under TSI (``needs_temp``), t_ref without them."""
+
+    history_shape = (10,)
+    needs_temp = True
+
+    def __init__(self, youngs, nue, yield_stress, isohard=0.0, omega_t=0.0,
+                 alpha_t=0.0, t_ref=0.0, density=0.0):
+        self.youngs, self.nue = float(youngs), float(nue)
+        self.yield_stress, self.isohard = float(yield_stress), float(isohard)
+        self.omega_t, self.alpha_t = float(omega_t), float(alpha_t)
+        self.t_ref, self.density = float(t_ref), float(density)
+        self.G = self.youngs / (2 * (1 + self.nue))
+        self.K = self.youngs / (3 * (1 - 2 * self.nue))
+
+    def evaluate_small(self, eps, h, dt=None, T=None):
+        """eps (3, 3, ...), h (10, ...), T shaped like the batch or None
+        -> (sigma, h_new); the law reads no dt."""
+        G = self.G
+        batch = eps.shape[2:]
+        eye = gm.eye3l(eps)
+        dT = 0.0 if T is None else T - self.t_ref
+        ee = eps - self.alpha_t * dT * eye - _mat(h, 0, batch)
+        alpha = h[9]
+        tr_e = gm.tr3l(ee)
+        s_tr = 2.0 * G * (ee - tr_e * THIRD * eye)
+        snorm = gm.sqrt_rn(_norm3l(s_tr) + 1e-30)
+        sy = maximum(self.yield_stress * (1.0 - self.omega_t * dT)
+                     + self.isohard * alpha, 1e-8 * self.yield_stress)
+        dgam = maximum(SQ15 * snorm - sy, 0.0) * (
+            1.0 / (3.0 * G + self.isohard))
+        nhat = s_tr / snorm
+        sig = self.K * tr_e * eye + (s_tr - 2.0 * G * dgam * SQ15 * nhat)
+        eps_p = _mat(h, 0, batch) + dgam * SQ15 * nhat
+        return sig, torch.cat([_flat(eps_p, batch), (alpha + dgam)[None]])
 
 
 def sqrtm_db(C, iters=7):

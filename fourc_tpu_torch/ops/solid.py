@@ -249,29 +249,68 @@ def _sym(H):
     return 0.5 * (H + H.transpose(0, 1))
 
 
-def _stress(material, H, kinem, history=None, dt=None):
+def reads_temperature(material) -> bool:
+    """A law whose stress takes the Gauss points' temperatures: a
+    thermo-elastic one (``pk2_from_E(E, T)``) or a history law that
+    ``needs_temp`` (``evaluate_small(eps, h, dt, T)``); the element route
+    hands every other law no temperature, as the reference's."""
+    return (getattr(material, "kind", None) == "thermo_solid"
+            or getattr(material, "needs_temp", False))
+
+
+def is_prestressed(material) -> bool:
+    """A MULF block (``materials.elastic.MulfPrestress``): its history
+    is the prestretch F0, its kinematics ``MulfPrestress.total_gradient``."""
+    return getattr(material, "prestress", None) == "mulf"
+
+
+def _prestretch(history):
+    """F0 (3, 3, g, E) of a MULF block's history (E, g, 9), row-major."""
+    E, g, _ = history.shape
+    return history.permute(2, 1, 0).reshape(3, 3, g, E)
+
+
+def _stress(material, H, kinem, history=None, dt=None, temps=None):
     """The stress of the element route at the displacement gradient H
     (3, 3, g, E) and the new history: the reference's ``_gp_stress``.
     Nonlinear kinematics: S at the Green-Lagrange strain E (``pk2_from_E``;
     a history law's ``evaluate`` at C = 2E + I); linear: the stress at
     eps = sym H (``pk2_from_E``, or a history law's ``evaluate_small``).
     ``history`` (E, g, nh) is the block's, as the reference keeps it; the
-    new history comes back in that layout (None without history)."""
+    new history comes back in that layout (None without history).
+    ``temps`` (g, E), the Gauss points' temperatures, reach a law that
+    ``reads_temperature``."""
+    T = temps if temps is not None and reads_temperature(material) else None
     if history is None:
         arg = _sym(H) if kinem == "linear" else _green_lagrange(H)
-        return material.pk2_from_E(arg), None
+        S = material.pk2_from_E(arg) if T is None else \
+            material.pk2_from_E(arg, T)
+        return S, None
     h = history.permute(2, 1, 0)  # (nh, g, E)
     if kinem == "linear":
-        S, h_new = material.evaluate_small(_sym(H), h, dt)
+        S, h_new = (material.evaluate_small(_sym(H), h, dt) if T is None
+                    else material.evaluate_small(_sym(H), h, dt, T=T))
     else:
         Egl = _green_lagrange(H)
         S, h_new = material.evaluate(2.0 * Egl + gm.eye3l(Egl), h, dt)
     return S, h_new.permute(2, 1, 0)
 
 
+def _first_pk(material, H, kinem, history=None, dt=None, temps=None):
+    """(P, new history): the stress that the element route integrates
+    against the shape-function gradients, P = F S (sigma under linear
+    kinematics); a MULF block's at its total deformation gradient
+    (``MulfPrestress.first_pk``), its history the prestretch kept."""
+    if is_prestressed(material):
+        return material.first_pk(H, _prestretch(history)), history
+    S, h_new = _stress(material, H, kinem, history, dt, temps)
+    P = S if kinem == "linear" else gm.matmul3l(H + gm.eye3l(H), S)
+    return P, h_new
+
+
 def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True,
                   kinem="nonlinear", history=None, dt=None,
-                  with_history=False):
+                  with_history=False, temps=None):
     """Total-Lagrangian internal force f = sum_g wdet_g P(F_g) G_g of an
     element batch (when ``stiff``) plus ``mcoef * sum_g wdet_g N N^T u``
     (the consistent mass, when mcoef != 0; N (g, nen) is then required):
@@ -279,16 +318,16 @@ def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True,
     law's at the small strain, sigma = S(eps), eps = sym grad u (the
     reference's ``stress_small``: exact for SVK, nonlinear in eps for
     Neo-Hooke), and f = sum_g wdet_g sigma G_g.  A law with history takes
-    the block's ``history`` (E, g, nh) and ``dt`` (``_stress``); with
+    the block's ``history`` (E, g, nh) and ``dt`` (``_stress``), a law
+    that reads them the temperatures ``temps`` (g, E); with
     ``with_history`` the result is (f, the new history)."""
     nen, _, _, E = G.shape
     ut = u.reshape(nen, 3, E)
     out = torch.zeros_like(ut)
     h_new = None
     if stiff:
-        H = _grad(ut, G)
-        S, h_new = _stress(material, H, kinem, history, dt)
-        P = S if kinem == "linear" else gm.matmul3l(H + gm.eye3l(H), S)
+        P, h_new = _first_pk(material, _grad(ut, G), kinem, history, dt,
+                             temps)
         out = out + _integrate(P * wdet, G)
     if mcoef:
         out = out + mcoef * _mass(wdet, N, ut)
@@ -296,11 +335,14 @@ def element_force(G, wdet, u, material, mcoef=0.0, N=None, stiff=True,
     return (out, h_new) if with_history else out
 
 
-def _history_law(material, kinem, history, dt):
+def _history_law(material, kinem, history, dt, temps=None):
     """The stress of a history law as a function of the strain (eps, or
-    E with C = 2E + I) at the old history (E, g, nh)."""
+    E with C = 2E + I) at the old history (E, g, nh) and the temperatures
+    ``temps`` (g, E) of a law that reads them."""
     h = history.permute(2, 1, 0)
     if kinem == "linear":
+        if temps is not None and reads_temperature(material):
+            return lambda e: material.evaluate_small(e, h, dt, T=temps)[0]
         return lambda e: material.evaluate_small(e, h, dt)[0]
     return lambda e: material.evaluate(2.0 * e + gm.eye3l(e), h, dt)[0]
 
@@ -310,7 +352,7 @@ def _history_law(material, kinem, history, dt):
 _SYM_DIRECTIONS = ((0, 0), (1, 1), (2, 2), (0, 1), (1, 2), (0, 2))
 
 
-def history_moduli(G, u, material, kinem, history, dt=None):
+def history_moduli(G, u, material, kinem, history, dt=None, temps=None):
     """The linearization of a history law's stress at u and the old
     history, for ``element_tangent``'s ``moduli``: the stress S (None
     under linear kinematics) and its forward derivatives along the six
@@ -321,7 +363,7 @@ def history_moduli(G, u, material, kinem, history, dt=None):
     directional derivative to rounding)."""
     nen, _, _, E = G.shape
     H = _grad(u.reshape(nen, 3, E), G)
-    law = _history_law(material, kinem, history, dt)
+    law = _history_law(material, kinem, history, dt, temps)
     e = _sym(H) if kinem == "linear" else _green_lagrange(H)
     dirs = torch.zeros((len(_SYM_DIRECTIONS),) + e.shape, dtype=e.dtype,
                        device=e.device)
@@ -340,8 +382,43 @@ def _contract(moduli, de):
     return out
 
 
+def _law_derivative(material, law, e, de):
+    """(law(e), its derivative along de): forward mode, or, for a law
+    whose stress is affine in the strain (``affine_in_strain``), its
+    ``pk2_from_E`` at de, forward mode's tangent to the bit without the
+    host time of a forward pass (``tools/affine_tangent_ab.py``)."""
+    if getattr(material, "affine_in_strain", False):
+        return law(e), material.pk2_from_E(de)
+    return torch.func.jvp(law, (e,), (de,))
+
+
+def temperature_moduli(G, wdet, u, material, kinem, temps, history=None,
+                       dt=None):
+    """The stress's derivative in the Gauss points' temperatures at u and
+    temps, weighted for integration: wdet dP/dT (3, 3, g, E), by forward
+    mode along unit temperatures (each Gauss point's stress reads its own
+    T only, so its derivative along any dtemps is dtemps times this)."""
+    nen, _, _, E = G.shape
+    H = _grad(u.reshape(nen, 3, E), G)
+    dS = torch.func.jvp(
+        lambda T: _stress(material, H, kinem, history, dt, T)[0],
+        (temps,), (torch.ones_like(temps),))[1]
+    dP = dS if kinem == "linear" else gm.matmul3l(H + gm.eye3l(H), dS)
+    return dP * wdet
+
+
+def element_temperature_derivative(G, moduli, dtemps):
+    """The derivative of ``element_force`` (its stress part) along the
+    Gauss points' temperatures dtemps (g, E), from the
+    ``temperature_moduli`` at the point of linearization: TSI's thermal
+    expansion block K_st."""
+    nen, _, _, E = G.shape
+    return _integrate(dtemps * moduli, G).reshape(nen * 3, E)
+
+
 def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None,
-                    kinem="nonlinear", history=None, dt=None, moduli=None):
+                    kinem="nonlinear", history=None, dt=None, moduli=None,
+                    temps=None):
     """Directional derivative of ``element_force`` along v plus
     ``mcoef * sum_g wdet_g N N^T v``: with dH = grad v and F = I + H,
     dE = (dH^T F + F^T dH) / 2, dS = the stress's derivative along dE
@@ -350,31 +427,39 @@ def element_tangent(G, wdet, u, v, material, mcoef=0.0, N=None,
     dP = dH S + F dS; with ``kinem`` "linear" dP = the stress's derivative
     at eps along sym dH.  ``moduli``, a history law's
     ``history_moduli`` at u, replaces the forward pass by its
-    contraction."""
+    contraction; ``temps`` (g, E) as in ``element_force``.  A MULF block
+    differentiates its ``first_pk`` (the base law by forward mode)."""
     nen, _, _, E = G.shape
     ut, vt = u.reshape(nen, 3, E), v.reshape(nen, 3, E)
     H, dH = _grad(ut, G), _grad(vt, G)
-    if history is None:
-        law = material.pk2_from_E
-    elif moduli is None:
-        # a forward pass through the return map per apply: what
-        # ``FieldBlock.hessian_at`` differentiates along u (through the
-        # moduli it would nest a six-direction linearization in every
-        # apply, not measured)
-        law = _history_law(material, kinem, history, dt)
-    if kinem == "linear":
-        if moduli is not None:
+    if is_prestressed(material):
+        dP = material.first_pk_derivative(H, dH, _prestretch(history))
+    elif moduli is not None:
+        if kinem == "linear":
             dP = _contract(moduli[1], _sym(dH))
         else:
-            _, dP = torch.func.jvp(law, (_sym(H),), (_sym(dH),))
+            F = H + gm.eye3l(H)
+            dS = _contract(moduli[1], _sym(gm.tmatmul3l(F, dH)))
+            dP = gm.matmul3l(dH, moduli[0]) + gm.matmul3l(F, dS)
     else:
-        F = H + gm.eye3l(H)
-        dE = _sym(gm.tmatmul3l(F, dH))
-        if moduli is not None:
-            S, dS = moduli[0], _contract(moduli[1], dE)
+        if history is not None:
+            # a forward pass through the return map per apply: what
+            # ``FieldBlock.hessian_at`` differentiates along u (through
+            # the moduli it would nest a six-direction linearization in
+            # every apply, not measured)
+            law = _history_law(material, kinem, history, dt, temps)
+        elif temps is not None and reads_temperature(material):
+            def law(e):
+                return material.pk2_from_E(e, temps)
         else:
-            S, dS = torch.func.jvp(law, (_green_lagrange(H),), (dE,))
-        dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
+            law = material.pk2_from_E
+        if kinem == "linear":
+            dP = _law_derivative(material, law, _sym(H), _sym(dH))[1]
+        else:
+            F = H + gm.eye3l(H)
+            dE = _sym(gm.tmatmul3l(F, dH))
+            S, dS = _law_derivative(material, law, _green_lagrange(H), dE)
+            dP = gm.matmul3l(dH, S) + gm.matmul3l(F, dS)
     out = _integrate(dP * wdet, G)
     if mcoef:
         out = out + mcoef * _mass(wdet, N, vt)

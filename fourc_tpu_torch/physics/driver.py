@@ -1,7 +1,8 @@
 """Global problem driver: deck -> field -> time loop -> result tests.
 
-Counterpart of fourc_tpu/physics/driver.py for structure problems: ``run``
-dispatches a deck, ``time_loop`` advances a field with the reference's
+Counterpart of fourc_tpu/physics/driver.py for structure, thermo, scatra
+and TSI problems: ``run`` dispatches a deck, ``time_loop`` advances a field
+with the reference's
 DIVERCONT handling, ``time_loop_adaptive`` with its error-controlled
 (Zienkiewicz-Xie) step size, ``newton_params_from`` maps the deck's Newton
 and solver settings.  Every other problem type, sharding over several
@@ -46,12 +47,24 @@ def run(deck_src, callbacks=None, device="cuda") -> RunResult:
     """Run a deck end to end on ``device`` (the CUDA card unless the CPU is
     asked for).  deck_src: path | yaml str | dict | Deck."""
     deck = deck_src if isinstance(deck_src, deck_mod.Deck) else deck_mod.load(deck_src)
-    if deck.problem_type != "structure":
-        raise NotImplementedError(
-            f"problem type {deck.problem_type!r} is not ported (structure is)")
-    from fourc_tpu_torch.physics import structure_driver
+    ptype = deck.problem_type
+    if ptype == "structure":
+        from fourc_tpu_torch.physics import structure_driver
 
-    return structure_driver.run(deck, callbacks=callbacks, device=device)
+        return structure_driver.run(deck, callbacks=callbacks, device=device)
+    if ptype in ("scatra", "thermo"):
+        from fourc_tpu_torch.physics import scalar_driver
+
+        run_field = (scalar_driver.run_scatra if ptype == "scatra"
+                     else scalar_driver.run_thermo)
+        return run_field(deck, callbacks=callbacks, device=device)
+    if ptype == "tsi":
+        from fourc_tpu_torch.physics import tsi_driver
+
+        return tsi_driver.run(deck, callbacks=callbacks, device=device)
+    raise NotImplementedError(
+        f"problem type {ptype!r} is not ported "
+        f"({', '.join(deck_mod.PROBLEM_TYPES)} are)")
 
 
 def time_loop(

@@ -37,7 +37,11 @@ the mesh itself:
 A history law keeps its internal variables per Gauss point in
 ``state["hist"]`` (block key -> (E, g, nh)); the steps form the residual
 and the Newton operator at the history of the last converged step and
-replace it after convergence.  Springs (k u + c (u - u_old) / dt on their
+replace it after convergence.  A MULF block's history is its prestretch
+F0, which only ``update_prestress`` changes.  A TSI field
+(``general=True``: no lattice) hands its forces and tangents the Gauss
+points' temperatures (``temps``), which its thermo-elastic and
+thermoplastic laws read on the element route.  Springs (k u + c (u - u_old) / dt on their
 nodes) are part of the internal force, on every kind of mesh; the volume
 constraint's force enters each step's residual as a negative external
 force.
@@ -147,9 +151,11 @@ class FieldBlock:
     tech: str = "none"
     geo: torch.Tensor | None = None
 
-    def force(self, ue, h=None, dt=None, with_history=False):
+    def force(self, ue, h=None, dt=None, with_history=False, temps=None):
         """The block's internal force; with ``with_history`` (a history
-        law) the pair (force, new history)."""
+        law) the pair (force, new history); ``temps`` (g, E) the Gauss
+        points' temperatures (TSI), read by a law that takes them
+        (``ops.reads_temperature``: such a law has no kernel)."""
         if self.tech != "none":
             return ops.tech_force(self.tech, self.G, self.wdet, self.geo, ue,
                                   self.material, self.kinem)
@@ -157,13 +163,14 @@ class FieldBlock:
             return sk.hex8_force(self.X, ue, self.lam, self.mu, self.model)
         return ops.element_force(self.G, self.wdet, ue, self.material,
                                  kinem=self.kinem, history=h, dt=dt,
-                                 with_history=with_history)
+                                 with_history=with_history, temps=temps)
 
     def tangent(self, ue, ve, mcoef, standard=False, h=None, dt=None,
-                moduli=None):
+                moduli=None, temps=None):
         """K(u) v + mcoef * rho M_1 v (M_1: the unit-density mass); with
         ``standard`` the tangent without the block's tech; ``moduli`` a
-        history law's ``history_moduli`` at ue."""
+        history law's ``history_moduli`` at ue; ``temps`` as in
+        ``force``."""
         c = mcoef * self.density
         if self.tech != "none" and not standard:
             return ops.tech_tangent(self.tech, self.G, self.wdet, self.geo,
@@ -174,13 +181,22 @@ class FieldBlock:
                                    self.model, c)
         return ops.element_tangent(self.G, self.wdet, ue, ve, self.material,
                                    c, self.N, kinem=self.kinem, history=h,
-                                   dt=dt, moduli=moduli)
+                                   dt=dt, moduli=moduli, temps=temps)
 
-    def moduli(self, ue, h, dt=None):
+    def moduli(self, ue, h, dt=None, temps=None):
         """A history law's linearization at ue and the old history h
-        (``ops.history_moduli``)."""
+        (``ops.history_moduli``); None for a MULF block, whose history is
+        its prestretch and whose tangent differentiates the base law."""
+        if ops.is_prestressed(self.material):
+            return None
         return ops.history_moduli(self.G, ue, self.material, self.kinem, h,
-                                  dt)
+                                  dt, temps)
+
+    def temperature_moduli(self, ue, temps, h=None, dt=None):
+        """The block's ``ops.temperature_moduli`` at ue and temps (a law
+        that ``reads_temperature``; the element route)."""
+        return ops.temperature_moduli(self.G, self.wdet, ue, self.material,
+                                      self.kinem, temps, h, dt)
 
     def hessian_at(self, ue, we, h=None, dt=None):
         """ve -> D^2 f(ue)[we, ve], the derivative along ve of the tangent
@@ -263,6 +279,14 @@ def unsupported_history(block_mat: dict, kinem: str, tech: str) -> list:
     for key, m in block_mat.items():
         if not isinstance(m, HistoryMaterial):
             continue
+        if ops.is_prestressed(m):
+            if kinem != "nonlinear":
+                out.append(f"element block {key!r}: MULF prestress under "
+                           f"kinem {kinem!r}")
+            if tech != "none":
+                out.append(f"element block {key!r}: MULF prestress under "
+                           f"tech {tech!r}")
+            continue
         if not hasattr(m, form):
             out.append(f"element block {key!r}: material "
                        f"{type(m).__name__} under kinem {kinem!r}")
@@ -295,7 +319,7 @@ class SolidField:
                  params: SolidParams, dirichlet=(), neumann=(),
                  functions: FunctionManager | None = None,
                  device="cuda", dtype=torch.float64, body_forces=(),
-                 springs=(), constraints=()):
+                 springs=(), constraints=(), general=False):
         self.disc = disc
         self.params = params
         self.device = resolve_device(device)
@@ -309,8 +333,8 @@ class SolidField:
                 raise ValueError(f"block {key} mixes materials")
             self.block_mat[key] = materials[mid]
         self._check_supported()
-        lattice_path = takes_lattice_path(disc, self.block_mat, params.kinem,
-                                          params.tech)
+        lattice_path = not general and takes_lattice_path(
+            disc, self.block_mat, params.kinem, params.tech)
         self.dofmap = disc.dofmap(self.ndpn, lattice=lattice_path)
         self.ndof = self.dofmap.ndof
         self.dbc = DirichletHandler(list(dirichlet), disc.coords, self.ndpn,
@@ -335,7 +359,7 @@ class SolidField:
         self.free = self.to_lattice(free.to(self.device)) > 0
         self._amg_cache = {}
         self._probe_blocks = None
-        self._moduli_memo = None  # _history_moduli's last linearization
+        self._memos = {}  # _kept's last linearizations, by name
         self._neumann_data = []
         for nb in self.neumann:
             if nb.kind != "traction":
@@ -470,24 +494,30 @@ class SolidField:
             for b in self.blocks})
 
     def internal_force(self, u, hist=None, dt=None, u_old=None,
-                       with_history=False):
+                       with_history=False, temps=None):
         """f_int(u), the springs' k u included, and c (u - u_old) / dt where
         the caller passes u_old (the reference's statics and gen-alpha
         steps; its one-step-theta and explicit steps do not).  ``hist``
         (block key -> (E, g, nh)) is the history of the last converged step
         and ``dt`` the step; with ``with_history`` the result is
-        (f_int, the new history)."""
+        (f_int, the new history).  ``temps`` (block key -> (g, E)) are the
+        Gauss points' temperatures of a TSI field (``general``: no
+        lattice)."""
         new_hist = {}
+        if temps is not None and not self.blocks:
+            raise ValueError("temperatures need a field of general topology "
+                             "(SolidField(general=True))")
         if self.blocks:
-            hist = hist or {}
+            hist, temps = hist or {}, temps or {}
             per_block = {}
             for b in self.blocks:
                 ue = self.dofmap.gather(u, b.key)
+                T = temps.get(b.key)
                 if b.key in hist:
                     per_block[b.key], new_hist[b.key] = b.force(
-                        ue, hist[b.key], dt, with_history=True)
+                        ue, hist[b.key], dt, with_history=True, temps=T)
                 else:
-                    per_block[b.key] = b.force(ue)
+                    per_block[b.key] = b.force(ue, temps=T)
             f = self.dofmap.scatter_add(per_block)
         elif self.x is not None:
             f = lk.neo_force_gen(self.x, u, self.dN, self.w, self.N,
@@ -502,21 +532,23 @@ class SolidField:
             f = f + fsp
         return (f, new_hist) if with_history else f
 
-    def tangent(self, u, v, mcoef=0.0, hist=None, dt=None):
+    def tangent(self, u, v, mcoef=0.0, hist=None, dt=None, temps=None):
         """K(u) v + mcoef * M v, M the field's mass (each block's density
         included): consistent, in the same kernel pass, or lumped, added
         elementwise after a pass without the mass; K includes the springs'
         k (their dashpots: ``dashpot``) and a history law's tangent at the
-        old history ``hist``."""
+        old history ``hist``, at the temperatures ``temps`` of a TSI
+        field."""
         if mcoef and self.params.mass == "lumped":
-            return self.tangent(u, v, hist=hist, dt=dt) \
+            return self.tangent(u, v, hist=hist, dt=dt, temps=temps) \
                 + mcoef * self.mlump * v
         if self.blocks:
-            hist = hist or {}
-            mods = self._history_moduli(u, hist, dt)
+            hist, temps = hist or {}, temps or {}
+            mods = self._history_moduli(u, hist, dt, temps)
             out = self._assemble(
                 lambda b, ue, ve: b.tangent(ue, ve, mcoef, h=hist.get(b.key),
-                                            dt=dt, moduli=mods.get(b.key)),
+                                            dt=dt, moduli=mods.get(b.key),
+                                            temps=temps.get(b.key)),
                 u, v)
         else:
             c = mcoef * self.density
@@ -531,24 +563,55 @@ class SolidField:
             out = out + self.k_spring * v
         return out
 
-    def _history_moduli(self, u, hist, dt):
+    def _history_moduli(self, u, hist, dt, temps=None):
         """Block key -> ``FieldBlock.moduli`` at u for every block of a
         history law on the element route, kept while u (the same tensor,
-        unchanged), the history and dt stay: the Krylov applies of one
-        Newton iterate share one linearization."""
+        unchanged), the history, the temperatures and dt stay: the Krylov
+        applies of one Newton iterate share one linearization."""
+        temps = temps or {}
         blocks = [b for b in self.blocks
-                  if b.key in hist and b.tech == "none" and b.model is None]
+                  if b.key in hist and b.tech == "none" and b.model is None
+                  and not ops.is_prestressed(b.material)]
         if not blocks:
             return {}
-        held = (u, *(hist[b.key] for b in blocks))
+        return self._kept("history", blocks, u, hist, temps, dt, lambda: {
+            b.key: b.moduli(self.dofmap.gather(u, b.key), hist[b.key], dt,
+                            temps.get(b.key)) for b in blocks})
+
+    def _kept(self, name, blocks, u, hist, temps, dt, build):
+        """build() of the blocks' linearization at u, kept under ``name``
+        while u (the same tensor, unchanged), the blocks' history and
+        temperatures and dt stay: the Krylov applies of one Newton
+        iterate share it."""
+        held = (u, *(hist[b.key] for b in blocks if b.key in hist),
+                *(temps[b.key] for b in blocks if b.key in temps))
         stamp = (dt, [b.key for b in blocks], [t._version for t in held])
-        memo = self._moduli_memo
+        memo = self._memos.get(name)
         if (memo is None or memo[1] != stamp
                 or any(a is not b for a, b in zip(memo[0], held))):
-            memo = self._moduli_memo = (held, stamp, {
-                b.key: b.moduli(self.dofmap.gather(u, b.key), hist[b.key],
-                                dt) for b in blocks})
+            memo = self._memos[name] = (held, stamp, build())
         return memo[2]
+
+    def temperature_derivative(self, u, temps, dtemps, hist=None, dt=None):
+        """The derivative of ``internal_force(u, hist, dt, temps=temps)``
+        along the Gauss points' temperatures dtemps (block key -> (g, E)),
+        summed over the blocks whose law reads them: TSI's thermal
+        expansion block K_st, 0 without such a block.  Each block's
+        ``temperature_moduli`` at (u, temps) is kept for the Krylov
+        applies of one Newton iterate (``_kept``)."""
+        hist = hist or {}
+        blocks = [b for b in self.blocks if b.key in temps
+                  and ops.reads_temperature(b.material)]
+        if not blocks:
+            return torch.zeros_like(u)
+        mods = self._kept("temperature", blocks, u, hist, temps, dt, lambda: {
+            b.key: b.temperature_moduli(self.dofmap.gather(u, b.key),
+                                        temps[b.key], hist.get(b.key), dt)
+            for b in blocks})
+        return self.dofmap.scatter_add({
+            b.key: ops.element_temperature_derivative(b.G, mods[b.key],
+                                                      dtemps[b.key])
+            for b in blocks})
 
     def dashpot(self, v, dt):
         """The derivative of the dashpots' c (u - u_old) / dt along v (0
@@ -882,6 +945,28 @@ def init_state(f: SolidField):
                 ne, ngp, -1)
     return {"d": z, "v": z.clone(), "a": z.clone(), "t": 0.0, "step": 0,
             "fint": z.clone(), "fext": z.clone(), "hist": hist}
+
+
+def update_prestress(f: SolidField, state):
+    """MULF's update after a converged prestress step: each MULF block's
+    prestretch becomes the total deformation gradient of the step,
+    F0 <- F_tot (``MulfPrestress.total_gradient`` + I), and d, v, a and
+    f_int restart from zero (4C's prestress update; the reference's
+    ``update_prestress``)."""
+    hist = dict(state["hist"])
+    d = state["d"]
+    for b in f.blocks:
+        if not ops.is_prestressed(b.material):
+            continue
+        nen, _, g, E = b.G.shape
+        H = ops._grad(f.dofmap.gather(d, b.key).reshape(nen, 3, E), b.G)
+        F0 = ops._prestretch(hist[b.key])
+        Ht = b.material.total_gradient(H, F0)
+        hist[b.key] = (Ht + gm.eye3l(Ht)).reshape(9, g, E).permute(2, 1, 0)
+    new = dict(state)
+    new.update({k: torch.zeros_like(d) for k in ("d", "v", "a", "fint")},
+               hist=hist)
+    return new
 
 
 def compute_initial_state(f: SolidField, state, consistent_mass_tol=1e-10):

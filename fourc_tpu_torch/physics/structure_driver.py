@@ -29,7 +29,7 @@ from fourc_tpu_torch.core.mesh import _detect_structured
 from fourc_tpu_torch.linalg.solvers import SOLVERS
 from fourc_tpu_torch.materials import (HistoryMaterial, elastic_moduli,
                                        make_material)
-from fourc_tpu_torch.ops.solid import TECHS
+from fourc_tpu_torch.ops.solid import TECHS, is_prestressed
 from fourc_tpu_torch.physics import driver as drv
 from fourc_tpu_torch.physics import solid as ps
 from fourc_tpu_torch.physics.constraints import VolumeConstraint
@@ -81,8 +81,6 @@ def check_supported(deck, disc_name="structure"):
             out.append(f"{key} {dyn[key]!r} under dynamictype "
                        f"{dyn['dynamictype']!r} (Rayleigh damping is ported "
                        f"for genalpha)")
-    if dyn["prestress"] != "none":
-        out.append(f"prestress {dyn['prestress']!r}")
     implicit = dyn["dynamictype"] != "explicit"
     if implicit and solver["method"] not in SOLVERS:
         out.append(f"solver.method {solver['method']!r} "
@@ -115,6 +113,9 @@ def check_supported(deck, disc_name="structure"):
         multigrid = iterative and solver["precond"] in ("gmg", "amg")
         out += ps.unsupported_history(block_mat, dyn["kinem"], dyn["tech"])
         for key, m in block_mat.items():
+            if is_prestressed(m) and dyn["k_damp"]:
+                out.append(f"element block {key!r}: MULF prestress under "
+                           f"k_damp")
             second = ("tech 'eas_mild'" if dyn["tech"] == "eas_mild"
                       else "k_damp" if dyn["k_damp"] else None)
             if second and getattr(m, "first_order_only", False):
@@ -180,7 +181,10 @@ def check_supported(deck, disc_name="structure"):
         raise NotImplementedError("not ported: " + "; ".join(out))
 
 
-def build_field(deck, disc_name="structure", device="cuda") -> ps.SolidField:
+def build_field(deck, disc_name="structure", device="cuda",
+                general=False) -> ps.SolidField:
+    """The deck's solid field; ``general`` takes general topology whatever
+    the mesh (TSI: its temperatures reach the element route)."""
     disc = deck.disc[disc_name]
     materials = {mid: make_material(spec) for mid, spec in deck.materials.items()}
     conds = deck.conditions.get(disc_name, {})
@@ -198,6 +202,7 @@ def build_field(deck, disc_name="structure", device="cuda") -> ps.SolidField:
         body_forces=conds.get("body_force", ()),
         springs=conds.get("spring_dashpot", ()), constraints=constraints,
         functions=deck.functions, device=device, dtype=dtype,
+        general=general,
     )
 
 
@@ -212,6 +217,16 @@ def run(deck, callbacks=None, device="cuda") -> drv.RunResult:
     n_steps = dyn["numstep"]
     if dyn["maxtime"] is not None:
         n_steps = int(round(dyn["maxtime"] / dyn["timestep"]))
+    if dyn["prestress"] == "mulf":
+        # MULF's prestress phase: each converged step folds its
+        # deformation into the prestretch, and d restarts from zero
+        for _ in range(dyn["prestress_steps"]):
+            state, _ = drv.time_loop(
+                "prestress", state, lambda dt: ps.make_step(f, dt),
+                dyn["timestep"], 1, divercont=dyn["divercont"],
+                max_levels=dyn["maxdivconrefinementlevel"], timers=timers,
+                verbose=False)
+            state = ps.update_prestress(f, state)
     if dyn["timada_kind"] == "zienkiewicz_xie":
         state, agg = drv.time_loop_adaptive(
             "structure", state, lambda dt: ps.make_step(f, dt),

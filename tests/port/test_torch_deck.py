@@ -5,7 +5,11 @@ float64 (the kernels' twins and the element route) and must meet their
 RESULT DESCRIPTION anchors: those that the JAX package wrote into the
 lattice, AMG, tet4, integrator, EAS, F-bar, GOH, Ogden, volume-constraint
 and history decks, and those quoted verbatim from 4C in the three converted
-hex8 and wedge6 decks (the F-bar one with nodal stresses).  The
+hex8 and wedge6 decks (the F-bar one with nodal stresses); and the seven
+decks of slice 5a (thermo, scatra, TSI and MULF prestress, the thermo-bar,
+scatra convection and MULF ones converted from 4C), each with the
+reference CLI's Newton iterations, the two MULF decks with 4C's form (their
+Newton counts are this port's).  The
 spring-dashpot deck runs with its viscosity zeroed: the reference drops the
 dashpot under one-step-theta, so its anchors are spring-only, and the deck
 as written is refused, naming the dashpot; the six decks of the other
@@ -74,6 +78,22 @@ BIOLOGY_DECKS = [os.path.join(ROOT, "decks", f"{name}.yaml")
                               "muscle_active_twitch",
                               "muscle_blemker_contraction",
                               "cardiac_active_stress_twitch")]
+# slice 5a: deck -> (anchors met, the reference CLI's Newton iterations;
+# the MULF decks are held to 4C's form: 12/12 for the converted one, and
+# 0 Newton iterations for the self-anchored one, whose prestressed mesh
+# balances its load, so that its three anchors are missed: ROADMAP C)
+FIELD_DECKS = {
+    os.path.join(ROOT, "decks", "ref_converted",
+                 "thermo_bar_dbc_genalpha.yaml"): (3, 3, 100),
+    os.path.join(ROOT, "decks", "thermo_fin_cooling.yaml"): (2, 2, 97),
+    os.path.join(ROOT, "decks", "ref_converted",
+                 "scatra_3d_straight_convection.yaml"): (2, 2, 1),
+    os.path.join(ROOT, "decks", "tsi_heated_bar.yaml"): (3, 3, 70),
+    os.path.join(ROOT, "decks", "tsi_partitioned_bar.yaml"): (3, 3, 2044),
+    os.path.join(ROOT, "decks", "ref_converted",
+                 "solid_ele_hex8_standard_mulf.yaml"): (12, 12, 42),
+    os.path.join(ROOT, "decks", "mulf_prestress.yaml"): (0, 3, 0),
+}
 # deck -> number of anchors
 GATE_DECKS = {LATTICE: 1, AMG: 6, HEX8_DYNAMIC: 12, WEDGE6_DYNAMIC: 12,
               TET4: 6, **{path: 6 for path in INTEGRATOR_DECKS},
@@ -91,7 +111,7 @@ def _structure_decks():
         ptype = str((data.get("problem") or {}).get("type", "structure"))
         if (ptype.lower() == "structure" and path not in GATE_DECKS
                 and path != SPRINGS and path not in PLASTICITY_DECKS
-                and path not in BIOLOGY_DECKS):
+                and path not in BIOLOGY_DECKS and path not in FIELD_DECKS):
             out.append(path)
     return out
 
@@ -104,6 +124,21 @@ def test_gate_deck_meets_its_anchors(path, capsys):
     out = capsys.readouterr().out
     assert f"result tests: {n}/{n} passed" in out
     assert "FAIL" not in out
+
+
+@pytest.mark.parametrize("path", list(FIELD_DECKS),
+                         ids=lambda p: os.path.basename(p))
+def test_field_deck_meets_its_anchors(path, capsys):
+    """The seven decks of slice 5a through the CLI on the CPU: their
+    anchors and the reference CLI's Newton iterations (4C's form for the
+    two MULF decks)."""
+    met, n, newton = FIELD_DECKS[path]
+    rc = main([path, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"result tests: {met}/{n} passed" in out
+    assert rc == (0 if met == n else 1)
+    assert f" steps), {newton} Newton its" in out.split("\n[")[-1] or \
+        f"substeps), {newton} Newton its" in out
 
 
 def spring_deck_without_dashpot():
@@ -208,7 +243,7 @@ def _same_faces(got, want):
 
 @pytest.mark.parametrize("path", [LATTICE, AMG, HEX8_DYNAMIC, WEDGE6_DYNAMIC,
                                   TET4, HEX8_FBAR, SPRINGS, HISTORY_DECKS[1],
-                                  *BIOLOGY_DECKS],
+                                  *BIOLOGY_DECKS, *FIELD_DECKS],
                          ids=lambda p: os.path.basename(p))
 def test_loader_matches_reference(path):
     from fourc_tpu.io import deck as jdeck
@@ -289,8 +324,6 @@ def test_unported_structure_deck_is_refused(path, monkeypatch):
 UNPORTED_SETTINGS = {
     "chebyshev": ("solver", {"precond": "chebyshev"},
                   "solver.precond 'chebyshev'"),
-    "prestress": ("structural_dynamic", {"prestress": "mulf"},
-                  "prestress 'mulf'"),
     "m_damp_statics": ("structural_dynamic", {"dynamictype": "statics"},
                        "m_damp 0.3 under dynamictype 'statics'"),
     "fbar_kinem_linear": ("structural_dynamic",

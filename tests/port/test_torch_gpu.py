@@ -648,3 +648,84 @@ def test_biology_law_on_the_card_matches_the_cpu(cuda, name):
             assert torch.equal(got, want)
         else:
             assert _rel(got, want) <= 1e-13
+
+
+# slice 5a: deck -> (anchors met, anchors, the reference CLI's Newton
+# iterations; 4C's form's for the MULF decks), as tests/port/test_torch_deck.py
+FIELD_DECKS = {"decks/ref_converted/thermo_bar_dbc_genalpha.yaml": (3, 3, 100),
+               "decks/thermo_fin_cooling.yaml": (2, 2, 97),
+               "decks/ref_converted/scatra_3d_straight_convection.yaml":
+                   (2, 2, 1),
+               "decks/tsi_heated_bar.yaml": (3, 3, 70),
+               "decks/tsi_partitioned_bar.yaml": (3, 3, 2044),
+               "decks/ref_converted/solid_ele_hex8_standard_mulf.yaml":
+                   (12, 12, 42),
+               "decks/mulf_prestress.yaml": (0, 3, 0)}
+
+
+def _states(run):
+    """Every tensor of a state after every step (the history's by block)."""
+    out = []
+
+    def cb(_, st, __):
+        row = {}
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                row[k] = v.detach().cpu().clone()
+            elif isinstance(v, dict):
+                row.update({f"{k} {kk}": vv.detach().cpu().clone()
+                            for kk, vv in v.items()})
+        out.append(row)
+
+    return out, cb
+
+
+@pytest.mark.parametrize("path", list(FIELD_DECKS))
+def test_field_deck_on_the_card_matches_the_cpu(cuda, path):
+    """The seven decks of slice 5a: the card's state after every step
+    within 1e-11 of the CPU run's largest entry, the anchors and the
+    Newton iterations of FIELD_DECKS on both."""
+    import os
+
+    from fourc_tpu_torch.io.result_test import run_result_tests
+    from fourc_tpu_torch.physics import driver
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    met, n, newton = FIELD_DECKS[path]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        states, cb = _states(None)
+        res = driver.run(os.path.join(root, path), callbacks=[cb],
+                         device=device)
+        runs[device] = states
+        tests = run_result_tests(res.deck.result_tests, res)
+        assert sum(t.ok for t in tests) == met and len(tests) == n
+        assert res.stats[next(iter(res.stats))]["newton_iters"] == newton
+    assert len(runs["cuda"]) == len(runs["cpu"])
+    for k in runs["cpu"][0]:
+        scale = max(float(c[k].abs().max()) for c in runs["cpu"]) or 1.0
+        for g, c in zip(runs["cuda"], runs["cpu"]):
+            assert float((g[k] - c[k]).abs().max()) / scale <= 1e-11, k
+
+
+def test_tsi_permuted_converges_and_launches_b6(cuda):
+    """tsi_permuted at n=12 (chip_smoke phase 15 (b)): two monolithic steps
+    converge in float32, the temperatures rise, B6 carries the mass (and
+    no other kernel runs)."""
+    import chip_smoke as c
+
+    from fourc_tpu_torch.physics import tsi_driver as td
+
+    f = c.tsi_problem(12, "cuda", torch.float32)
+    state = td.init_state(f)
+    step = td.make_step(f, c.TSI_DT)
+    lk.reset_launches()
+    sk.reset_launches()
+    for _ in range(2):
+        state, stats = step(state)
+        assert stats["converged"]
+    assert sk.launches["force"] > 0 and sk.launches["tangent"] == 0
+    assert not any(lk.launches.values())
+    assert float((state["T"] - c.TSI_LAW["inittemp"]).max()) > 0
+    assert torch.isfinite(state["d"]).all()

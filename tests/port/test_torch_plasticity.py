@@ -244,8 +244,8 @@ def test_law_matches_reference(case):
 @pytest.mark.parametrize("T, dt", [(None, 1.0), (320.0, 0.5), (350.0, 2.0)])
 def test_robinson_return_map_matches_the_law_by_name(T, dt):
     """Robinson's law with T and dt by name (thermal softening of the
-    threshold on) against the reference's at 1e-12; a per-Gauss-point T
-    through ``evaluate_small`` is refused by name."""
+    threshold on) against the reference's at 1e-12, and through
+    ``evaluate_small`` with per-Gauss-point temperatures (TSI) around T."""
     import jax
 
     spec = {**ROBINSON, "omega_t": 2e-3, "t_ref": 300.0}
@@ -257,9 +257,14 @@ def test_robinson_return_map_matches_the_law_by_name(T, dt):
                            torch.as_tensor(h.T), T=T, dt=dt)
     assert _rel(st.numpy().transpose(2, 0, 1), sj) <= RTOL
     assert _rel(ht.numpy().T, hj) <= RTOL
-    with pytest.raises(NotImplementedError, match="temperatures"):
-        tm.evaluate_small(torch.as_tensor(eps.transpose(1, 2, 0)),
-                          torch.as_tensor(h.T), 0.5, T=torch.zeros(N_STATES))
+    Tg = (T or 300.0) + np.random.default_rng(5).uniform(-50, 50, N_STATES)
+    sj, hj = jax.vmap(lambda x, hh, tt: jm.evaluate_small(x, hh, T=tt,
+                                                          dt=dt))(eps, h, Tg)
+    st, ht = tm.evaluate_small(torch.as_tensor(eps.transpose(1, 2, 0)),
+                               torch.as_tensor(h.T), dt,
+                               T=torch.as_tensor(Tg))
+    assert _rel(st.numpy().transpose(2, 0, 1), sj) <= RTOL
+    assert _rel(ht.numpy().T, hj) <= RTOL
 
 
 def test_robinson_takes_the_step_dt():
@@ -390,12 +395,13 @@ def test_law_under_the_kinematics_it_lacks_is_refused(spec, kinem):
 
 
 def test_thermoplastic_law_is_refused_by_name():
+    """thermoplastic_j2 (ported with TSI's temperatures, a small-strain
+    law) under nonlinear kinematics is refused, naming it."""
     deck = deck_mod.load(yaml.safe_load(yaml.safe_dump(_box_deck({
         "type": "thermoplastic_j2", "youngs": 1000.0, "nue": 0.3,
-        "yield_stress": 5.0}, "linear"))))
+        "yield_stress": 5.0}, "nonlinear"))))
     with pytest.raises(NotImplementedError,
-                       match="material type 'thermoplastic_j2' is not "
-                             "ported"):
+                       match="ThermoPlasticJ2 under kinem 'nonlinear'"):
         structure_driver.check_supported(deck)
 
 

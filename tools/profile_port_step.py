@@ -15,7 +15,8 @@ under EAS with CG, chip_smoke.py phase 11 (b), (c); ``visco``, ``j2`` and
 12 (b)-(d), ``gtn`` and ``crystal`` under those of phase 13 (b), (c), the
 plastic ones after its elastic step that sets the yield stress or the
 slip resistance, ``growthremodel``, ``mixture`` and ``blemker`` under
-those of phase 14 (b)-(d)), runs
+those of phase 14 (b)-(d); ``tsi`` the monolithic TSI box of
+chip_smoke.py phase 15 (b), its step from ``tsi_driver.make_step``), runs
 two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
@@ -63,6 +64,11 @@ def main():
     if mesh == "explicit":
         f, step, _, dt = cs.explicit_problem(n)
         print(f"explicit n={n}: dt {dt:.4e}")
+    elif mesh == "tsi":
+        from fourc_tpu_torch.physics import tsi_driver as td
+
+        f = cs.tsi_problem(n, "cuda", torch.float32, n_steps=2 * n_steps + 2)
+        step = td.make_step(f, cs.TSI_DT)
     elif mesh in meshes:
         f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
         prepare = cs.prepare_for(mesh, laws[mesh]) if mesh in laws else None
@@ -70,9 +76,11 @@ def main():
             prepare(f)
         step = cs.make_step(f, mesh)
     else:
-        raise ValueError(f"mesh must be one of {list(meshes) + ['explicit']}"
-                         f", not {mesh!r}")
-    state = ps.compute_initial_state(f, ps.init_state(f))
+        raise ValueError(f"mesh must be one of "
+                         f"{list(meshes) + ['explicit', 'tsi']}, not "
+                         f"{mesh!r}")
+    state = (td.init_state(f) if mesh == "tsi"
+             else ps.compute_initial_state(f, ps.init_state(f)))
     for _ in range(2):
         state, _ = step(state)
     torch.cuda.synchronize()
