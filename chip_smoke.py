@@ -206,6 +206,24 @@ phase):
        traction, then 1 + 1 steps (cut from 1 + 2 for phase 15's time),
        none of B1-B7 launched, the largest |F0 - I| after the prestress
        phase printed.
+16. fluid and ALE (none launches B1-B7):
+   (a) the nine decks decks/fluid_cavity_stationary.yaml,
+       fluid_poiseuille_ost.yaml, fluid_smagorinsky_decay.yaml,
+       fluid_mfs_decay.yaml, windkessel_channel.yaml,
+       ale_patch_motion.yaml, scatra_supg_skewflow.yaml,
+       scatra_gaussian_diffusion.yaml and scatra_anisotropic_diffusion.yaml
+       as phase 15 (a), every state tensor (x, xdot, x_nm1, pwk, phi, the
+       mesh d, v) within DECK_TOL, FLUID_DECKS' Newton iterations on both;
+   (b) ``cavity3d_ost``: the 3D lid-driven cavity at Re 100 on a hex8 box
+       at n=64 (1,098,500 unknowns [u, v, w, p]), one-step-theta, SUPG,
+       PSPG and grad-div, GMRES(150) with the field's Jacobi; float32,
+       1 warm-up and 2 timed steps from rest, every step converged and no
+       GMRES solve at maxiter, the first residual and Jacobian action
+       finite, the residual, linearization and Jacobian action timed by
+       CUDA events, the largest |u| and the discrete divergence printed;
+   (c) ``ale_box``: ale_patch_motion's ramp u_x = 0.1 t x on every face
+       of a hex8 box at n=64, ``laplace``, float32, 1 + 2 solves, each
+       meeting the patch test to 1e-5 of its largest displacement.
 
 The nodal stresses of a deck with ``stress_*`` anchors (the converted
 F-bar deck of phase 11) are compared GPU against CPU after every step like
@@ -1848,13 +1866,13 @@ def _recording(states):
         driver.run = run
 
 
-def _field_decks_on_the_card():
-    """Phase 15 (a): each deck through the CLI on the card (its anchors as
-    FIELD_DECKS says; the CLI's own ``driver.run`` keeps the card's states),
-    then through ``driver.run`` on the CPU: every state tensor after every
-    step within DECK_TOL of its largest entry over the run, the reference's
-    Newton iterations on both."""
-    for path, (met, n_tests, newton) in FIELD_DECKS.items():
+def _field_decks_on_the_card(decks=None, label="fields"):
+    """Phase 15 (a) and 16 (a): each deck through the CLI on the card (its
+    anchors as FIELD_DECKS or FLUID_DECKS says; the CLI's own
+    ``driver.run`` keeps the card's states), then through ``driver.run`` on
+    the CPU: every state tensor after every step within DECK_TOL of its
+    largest entry over the run, the recorded Newton iterations on both."""
+    for path, (met, n_tests, newton) in (decks or FIELD_DECKS).items():
         t0 = time.perf_counter()
         reset_launches()
         runs, aggs = {"cuda": [], "cpu": []}, {}
@@ -1880,11 +1898,11 @@ def _field_decks_on_the_card():
             scale = max(float(c[k].abs().max()) for c in runs["cpu"])
             errs[k] = diff / scale if scale else diff
         got = {d: a["newton_iters"] for d, a in aggs.items()}
-        log("fields", f"{path} float64: {met}/{n_tests} anchors on the card "
+        log(label, f"{path} float64: {met}/{n_tests} anchors on the card "
                       f"(CLI {t_cli:.1f} s); newton {got['cuda']}, linear "
                       f"solver {aggs['cuda']['lin_iters']} on the card (CPU: "
-                      f"{got['cpu']}, {aggs['cpu']['lin_iters']}; the "
-                      f"reference: {newton}); GPU vs CPU over "
+                      f"{got['cpu']}, {aggs['cpu']['lin_iters']}; "
+                      f"recorded: {newton}); GPU vs CPU over "
                       f"{len(runs['cpu'])} steps, max rel err "
                       + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
                       + f" (tol {DECK_TOL:g}); card ms/step "
@@ -1893,8 +1911,8 @@ def _field_decks_on_the_card():
         if not max(errs.values()) <= DECK_TOL:
             raise RuntimeError(f"{path}: GPU run disagrees with the CPU run")
         if set(got.values()) != {newton}:
-            raise RuntimeError(f"{path}: {got} Newton iterations, the "
-                               f"reference takes {newton}")
+            raise RuntimeError(f"{path}: {got} Newton iterations, "
+                               f"{newton} recorded")
         if any(counts.values()):
             raise RuntimeError(f"{path}: launches {counts}")
 
@@ -2079,6 +2097,214 @@ def phase_fields(tsi_steps=TSI_STEPS - 1, mulf_steps=1):
                  after_mulf)
 
 
+# phase 16 (a): the nine decks of slice 6a -> (anchors met, anchors, Newton
+# iterations: the reference CLI's, the port's on the Poiseuille and
+# Windkessel decks, whose last residual of a step lands within 10% of
+# tolres on either side in the two packages; tests/port/test_torch_deck.py)
+FLUID_DECKS = {"decks/fluid_cavity_stationary.yaml": (3, 3, 12),
+               "decks/fluid_poiseuille_ost.yaml": (3, 3, 134),
+               "decks/fluid_smagorinsky_decay.yaml": (3, 3, 18),
+               "decks/fluid_mfs_decay.yaml": (3, 3, 33),
+               "decks/windkessel_channel.yaml": (2, 2, 144),
+               "decks/ale_patch_motion.yaml": (3, 3, 0),
+               "decks/scatra_supg_skewflow.yaml": (2, 2, 6),
+               "decks/scatra_gaussian_diffusion.yaml": (2, 2, 48),
+               "decks/scatra_anisotropic_diffusion.yaml": (1, 1, 30)}
+CAVITY_N, CAVITY_DT = 64, 0.01  # phase 16 (b)
+ALE_N, ALE_DT = 64, 0.2  # phase 16 (c)
+
+
+def cavity3d_problem(n, device, dtype):
+    """``cavity3d_ost``: the 3D lid-driven cavity at Re 100 on a box of
+    n^3 hex8 cells, [u, v, w, p] per node: newtonianfluid (mu 0.01,
+    rho 1); the lid zmax moves at (1, 0, 0), the other five faces hold no
+    slip and come after the lid (its edges take the walls' zero, as the 2D
+    deck orders them), the pressure is pinned at node 0; one-step-theta
+    (theta 1, dt 0.01) with SUPG, PSPG and grad-div, GMRES(150) with the
+    field's Jacobi (maxiter 4000, as fluid_cavity_stationary), Newton to a
+    relative residual of 1e-5 or an increment at float32's rounding."""
+    from fourc_tpu_torch.materials.fluid import NewtonianFluid
+    from fourc_tpu_torch.physics import fluid as pf
+    from fourc_tpu_torch.physics.newton import NewtonParams
+
+    disc = gridgen.box(n, n, n, name="fluid")
+    ns = disc.node_sets
+    dbc = [conditions.DirichletBC(ns["zmax"], [1, 1, 1, 0], [1.0, 0, 0, 0])]
+    dbc += [conditions.DirichletBC(ns[s], [1, 1, 1, 0], [0, 0, 0, 0])
+            for s in ("zmin", "xmin", "xmax", "ymin", "ymax")]
+    dbc.append(conditions.DirichletBC([0], [0, 0, 0, 1], [0, 0, 0, 0]))
+    ndof = 4 * disc.n_nodes
+    nw = NewtonParams(max_iter=12, tol_res=0.0, tol_res_rel=1e-5,
+                      tol_disp=1e-6 * ndof ** 0.5, combine="or",
+                      lin_method="gmres", gmres_restart=150,
+                      lin_maxiter=4000, lin_rtol=1e-4)
+    params = pf.FluidParams(dyntype="onesteptheta", theta=1.0, dt=CAVITY_DT,
+                            newton=nw)
+    return pf.FluidField(disc, {1: NewtonianFluid(viscosity=0.01,
+                                                  density=1.0)},
+                         params, dirichlet=dbc, device=device, dtype=dtype)
+
+
+def discrete_divergence(f, x):
+    """The Galerkin continuity residual int N_a div u dOmega at every node
+    (the discrete divergence of the velocity), (n_nodes,)."""
+    from fourc_tpu_torch.ops import fluid as fops
+    from fourc_tpu_torch.ops.scalar import _test
+
+    dm = f.disc.dofmap(1, lattice=False)
+    per_block = {}
+    for key, (G, wdet, N) in f.geometry.items():
+        nen = f.cells[key].nen
+        xe = f.dofmap.gather(x, key).reshape(nen, f.ndpn, -1)
+        divu = fops._fields(G, N, xe[:, :f.dim], xe[:, f.dim])[2]
+        per_block[key] = _test(N, wdet * divu)
+    return dm.scatter_add(per_block)
+
+
+@contextlib.contextmanager
+def _gmres_calls(calls):
+    """Every GMRES solve's (iterations, converged) appended to ``calls``
+    while the block runs."""
+    from fourc_tpu_torch.linalg import solvers
+
+    gmres = solvers.SOLVERS["gmres"]
+
+    def recorded(*args, **kwargs):
+        res = gmres(*args, **kwargs)
+        calls.append((res.iters, res.converged))
+        return res
+
+    solvers.SOLVERS["gmres"] = recorded
+    try:
+        yield
+    finally:
+        solvers.SOLVERS["gmres"] = gmres
+
+
+def ale_box_problem(n, device, dtype):
+    """``ale_box``: ale_patch_motion's ramp u_x = 0.1 t x on every face of
+    a box of n^3 hex8 cells, ``laplace``: (AleField, the Dirichlet
+    handler, the moving nodes)."""
+    from fourc_tpu_torch.physics.ale import AleField
+    from fourc_tpu_torch.physics.ale_driver import moving_nodes
+
+    disc = gridgen.box(n, n, n, name="ale")
+    fm = functions.FunctionManager()
+    fm.add(1, "0.1*t*x")
+    dbcs = [conditions.DirichletBC(disc.node_sets[s], [1, 1, 1], [1, 0, 0],
+                                   [1, 0, 0])
+            for s in ("xmin", "xmax", "ymin", "ymax", "zmin", "zmax")]
+    handler, moving = moving_nodes(dbcs, disc, fm)
+    return (AleField(disc, moving, (), "laplace", device=device,
+                     dtype=dtype), handler, moving)
+
+
+def phase_fluid(cavity_steps=2, ale_steps=2):
+    """Phase 16: the fluid field and ALE mesh motion."""
+    from fourc_tpu_torch.physics import fluid as pf
+
+    _field_decks_on_the_card(FLUID_DECKS, "fluid")
+    # (b) cavity3d_ost
+    n = CAVITY_N
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f = cavity3d_problem(n, "cuda", torch.float32)
+    state = pf.init_state(f)
+    step = pf.make_step(f, CAVITY_DT)
+    torch.cuda.synchronize()
+    log("cavity3d_ost", f"n={n}: {f.disc.n_nodes} nodes, {f.ndof} unknowns "
+                        f"[u, v, w, p], field and initial state "
+                        f"{time.perf_counter() - t0:.1f} s; nvidia-smi: "
+                        f"{_smi()}")
+    x0 = f.dbc.apply(state["x"], CAVITY_DT)
+    r0, apply0 = f.linearize(x0, torch.zeros_like(x0), CAVITY_DT,
+                             dt=CAVITY_DT)
+    v0 = torch.randn_like(x0)
+    jv0 = apply0(v0, pf.zero_pressure_rate(f, v0 * (1.0 / CAVITY_DT)))
+    log("cavity3d_ost", f"first residual finite "
+                        f"{bool(torch.isfinite(r0).all())}, first "
+                        f"Jacobian action finite "
+                        f"{bool(torch.isfinite(jv0).all())} (||J v|| "
+                        f"{float(jv0.norm()):.4e})")
+    if not (torch.isfinite(r0).all() and torch.isfinite(jv0).all()):
+        raise RuntimeError("cavity3d_ost: non-finite first residual or "
+                           "Jacobian action")
+    del r0, apply0, jv0
+    calls = []
+
+    def after_cavity(st):
+        x = st["x"]
+        u, p = f.split(x)
+        div = discrete_divergence(f, x)
+        umax = float(u.abs().max())
+        log("cavity3d_ost", f"GMRES solves (iterations, converged): {calls}")
+        log("cavity3d_ost", f"largest |u| {umax:.6f}, L2 norm of the "
+                            f"discrete divergence {float(div.norm()):.4e} "
+                            f"(of int N |div u|: "
+                            f"{float(div.abs().sum()):.4e}), pressure in "
+                            f"[{float(p.min()):.4f}, {float(p.max()):.4f}]")
+        if not (torch.isfinite(x).all() and 0.0 < umax < 1.5):
+            raise RuntimeError(f"cavity3d_ost: max|u| {umax}")
+        bad = [c for c in calls if c[0] >= f.params.newton.lin_maxiter]
+        if bad:
+            raise RuntimeError(f"cavity3d_ost: GMRES at maxiter {bad}")
+        xdot, t = st["xdot"], st["t"]
+        ms_res = _time(lambda: f.residual_transient(x, xdot, t, dt=CAVITY_DT),
+                       reps=5)
+        ms_lin = _time(lambda: f.linearize(x, xdot, t, dt=CAVITY_DT), reps=5)
+        log("cavity3d_ost", "ms per call (device, CUDA events, float32): "
+                            f"residual {ms_res:.3f}, linearization "
+                            f"{ms_lin:.3f}")
+        _, apply = f.linearize(x, xdot, t, dt=CAVITY_DT)
+        v = torch.randn_like(x)
+        dv = pf.zero_pressure_rate(f, v * (1.0 / CAVITY_DT))
+        log("cavity3d_ost", "ms per call, Jacobian action "
+            f"{_time(lambda: apply(v, dv), reps=10):.3f}")
+
+    with _gmres_calls(calls):
+        _fields_path("cavity3d_ost", f, state, step, cavity_steps, set(),
+                     after_cavity)
+    del f, state, step
+    # (c) ale_box
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ale, handler, moving = ale_box_problem(ALE_N, "cuda", torch.float32)
+    X = torch.as_tensor(ale.disc.coords, device=ale.device,
+                        dtype=torch.float32)
+    torch.cuda.synchronize()
+    log("ale_box", f"n={ALE_N}: {ale.disc.n_nodes} nodes, "
+                   f"{3 * ale.disc.n_nodes} unknowns, field "
+                   f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    times = []
+    for k in range(1 + ale_steps):
+        t = ALE_DT * (k + 1)
+        uD = torch.as_tensor(handler.values(t).reshape(-1, 3)[moving],
+                             dtype=torch.float32, device=ale.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d = ale.solve(uD, tol=1e-7, maxiter=3000)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        want = 0.1 * t * X[:, 0]
+        err = float(torch.maximum((d[:, 0] - want).abs().max(),
+                                  d[:, 1:].abs().max()))
+        scale = float(want.abs().max())
+        log("ale_box", f"solve {k} (t={t:.1f}): CG {ale.last_iters} (the "
+                       f"three components' solves together), "
+                       f"{1e3 * times[-1]:.1f} ms; patch test: max error "
+                       f"{err:.3e} of max|d| {scale:.4f} (rel "
+                       f"{err / scale:.3e}, tol 1e-5)")
+        if not err <= 1e-5 * scale:
+            raise RuntimeError(f"ale_box: patch test missed by {err}")
+    log("ale_box", f"{1e3 * sum(times[1:]) / ale_steps:.1f} ms per solve "
+                   f"over {ale_steps} timed solves, peak memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _check_launched("the ale_box path", None, launches(), set())
+
+
 def _phase(name, fn, *args):
     """Run one phase, its name printed as it starts; a phase that raises is
     named with its exception, and the exception goes on (exit code 1)."""
@@ -2110,6 +2336,7 @@ def main():
     _phase("13 plasticity laws", phase_plasticity)
     _phase("14 growth, mixture and muscle laws", phase_biology)
     _phase("15 thermo, TSI and MULF", phase_fields)
+    _phase("16 fluid and ALE", phase_fluid)
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fourc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts[path][k],

@@ -135,3 +135,27 @@ def tsi_state_from_jax(state):
     for k in ("T", "Tdot"):
         out[k] = np.array(state[k], np.float64)
     return out
+
+
+def fluid_state_from_jax(state):
+    """JAX fluid state (also fluid_ale's) -> the port's: ``x``, ``xdot``
+    and ``x_nm1`` (interleaved [u, p] per node, the same flat layout in
+    both packages), the Windkessel distal pressures ``pwk`` and the mesh
+    displacement ``mesh_disp`` (n_nodes, d) where the state has them, the
+    time and the step counter."""
+    out = {k: np.array(state[k], np.float64) for k in ("x", "xdot", "x_nm1")}
+    for k in ("pwk", "mesh_disp"):
+        if k in state:
+            out[k] = np.array(state[k], np.float64)
+    out["t"] = float(np.asarray(state["t"]))
+    out["step"] = int(np.asarray(state["step"]))
+    return out
+
+
+def ale_state_from_jax(state):
+    """JAX ALE state -> the port's: the mesh displacement ``d`` and
+    velocity ``v`` (n_nodes, d), the time and the step counter."""
+    out = {k: np.array(state[k], np.float64) for k in ("d", "v")}
+    out["t"] = float(np.asarray(state["t"]))
+    out["step"] = int(np.asarray(state["step"]))
+    return out

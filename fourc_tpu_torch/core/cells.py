@@ -1,4 +1,5 @@
-"""Cell tables: hex8, tet4 and wedge6 volumes, quad4 faces.
+"""Cell tables: hex8, tet4 and wedge6 volumes with quad4 faces, quad4 2D
+volumes with line2 edges.
 
 Counterpart of fourc_tpu/core/cells.py, restricted to the cell types the
 ported problems use.  Tables are built once on the host in float64 with the
@@ -28,6 +29,11 @@ _WEDGE_SURFACES = ((0, 1, 4, 3), (1, 2, 5, 4), (2, 0, 3, 5), (0, 2, 1),
 _QUAD_EDGES = ((0, 1), (1, 2), (2, 3), (3, 0))
 
 
+def _n_line2(xi):
+    r = xi[0]
+    return np.array([0.5 * (1 - r), 0.5 * (1 + r)])
+
+
 def _n_quad4(xi):
     r, s = xi
     c = _QUAD_CORNERS
@@ -54,6 +60,8 @@ def _n_wedge6(xi):
 def _tensor_rule(n, dim):
     """Tensor Gauss-Legendre rule, first axis fastest (reference order)."""
     p, w = np.polynomial.legendre.leggauss(n)
+    if dim == 1:
+        return p[:, None], w
     if dim == 2:
         P = np.array([[a, b] for b in p for a in p])
         W = np.array([wa * wb for wb in w for wa in w])
@@ -141,12 +149,14 @@ def get_cell(name: str) -> CellType:
     if name == "quad4":
         return _make("quad4", 2, _n_quad4, _tensor_rule(2, 2),
                      edges=_QUAD_EDGES)
+    if name == "line2":
+        return _make("line2", 1, _n_line2, _tensor_rule(2, 1))
     raise KeyError(f"cell type {name!r} is not ported ({', '.join(CELLS)} "
                    f"are)")
 
 
 _SHAPE_FNS = {"hex8": _n_hex8, "tet4": _n_tet4, "wedge6": _n_wedge6,
-              "quad4": _n_quad4}
+              "quad4": _n_quad4, "line2": _n_line2}
 
 
 @functools.cache
@@ -159,5 +169,7 @@ def origin_dN(name: str) -> np.ndarray:
     return _num_jac(_SHAPE_FNS[cell.name], np.zeros(cell.dim), 1e-7)
 
 
-CELLS = ("hex8", "tet4", "wedge6", "quad4")  # the ported cell types
+CELLS = ("hex8", "tet4", "wedge6", "quad4", "line2")  # the ported cell types
 SOLID_CELLS = ("hex8", "tet4", "wedge6")  # the ported 3D volume cells
+VOLUME_CELLS = {3: SOLID_CELLS, 2: ("quad4",)}  # by mesh dimension
+FACE_TYPE = {"hex8": "quad4", "quad4": "line2"}  # a volume cell's faces

@@ -269,11 +269,13 @@ class FunctionOfSpaceTime:
         return np.stack([ev(c) for c in self.components], axis=-1)
 
     def on_device(self, coords: torch.Tensor, t, component=0):
-        """One component at a tensor of coordinates (..., 3), evaluated by
+        """One component at a tensor of coordinates (..., d), evaluated by
         torch on their device in their dtype: (...).  ``t`` a number or a
         0-d tensor (``torch.func.jvp`` in t: ``DirichletHandler.rates``)."""
-        env = {"x": coords[..., 0], "y": coords[..., 1],
-               "z": coords[..., 2],
+        zero = torch.zeros_like(coords[..., 0])
+        env = {"x": coords[..., 0],
+               "y": coords[..., 1] if coords.shape[-1] > 1 else zero,
+               "z": coords[..., 2] if coords.shape[-1] > 2 else zero,
                "t": t if torch.is_tensor(t) else coords.new_tensor(float(t))}
         c = self.components[min(component, len(self.components) - 1)]
         out = _eval(c.ast, env, _TORCH_FUNCS, _TORCH_BINARY)

@@ -1,4 +1,5 @@
-"""Structured box generator: hex8, tet4 and wedge6 cells.
+"""Structured generators: the box of hex8, tet4 and wedge6 cells, the
+rectangle of quad4 cells.
 
 Counterpart of fourc_tpu/core/gridgen.py:box for linear 3D cells, with the
 connectivity and the face quads built by vectorised numpy instead of Python
@@ -6,7 +7,9 @@ loops, so the n=72 flagship box (1,167,051 dofs) builds without a
 per-element Python loop.  A tet4 box splits every hex8 of the lattice into
 6 tets and a wedge6 box into 2 wedges, with no new nodes, in the
 reference's order: all hexes' first piece, then all hexes' second, and so
-on.  The face sets are quad4 lattice faces for every cell type.
+on.  The face sets are quad4 lattice faces for every cell type.  A
+rectangle's node sets are the reference's, node for node, and its face sets
+line2 edges in the reference's orientation.
 """
 
 from __future__ import annotations
@@ -77,4 +80,48 @@ def _add_box_sets(disc: Discretization, lo, hi):
                                            _face_quads(lo_ids, c, axes))]
         disc.face_sets[nm_hi] = [FaceBlock("quad4",
                                            _face_quads(hi_ids, c, axes))]
+    disc.node_sets["all"] = np.arange(disc.n_nodes, dtype=np.int32)
+
+
+RECTANGLE_CELLS = ("quad4",)  # quad8, quad9 and tri3 are not ported
+
+
+def rectangle(nx: int, ny: int, lo=(0.0, 0.0), hi=(1.0, 1.0),
+              cell: str = "quad4", name: str = "structure",
+              mat_id: int = 1) -> Discretization:
+    """Rectangle of nx*ny quad4 cells, element (i, j) at row i*ny + j, node
+    (i, j) at id i*(ny+1) + j, coordinates by ``np.linspace`` as the
+    reference's."""
+    if cell not in RECTANGLE_CELLS:
+        raise NotImplementedError(f"rectangle cell {cell!r} is not ported "
+                                  f"({', '.join(RECTANGLE_CELLS)} is)")
+    px, py = nx + 1, ny + 1
+    X, Y = np.meshgrid(np.linspace(lo[0], hi[0], px),
+                       np.linspace(lo[1], hi[1], py), indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)
+    ii, jj = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    conn = np.stack([ii * py + jj, (ii + 1) * py + jj,
+                     (ii + 1) * py + jj + 1, ii * py + jj + 1],
+                    axis=-1).reshape(-1, 4).astype(np.int32)
+    disc = Discretization(name=name, coords=coords)
+    disc.blocks[cell] = ElementBlock(cell, conn, mat_id)
+    disc.structured_shape = (nx, ny, 1)
+    _add_box_sets_2d(disc, lo, hi)
+    return disc
+
+
+def _add_box_sets_2d(disc: Discretization, lo, hi):
+    """xmin/xmax/ymin/ymax node sets and their line2 edges, ordered along
+    the other axis; the set ``all``."""
+    c = disc.coords
+    tol = 1e-9 * max(1.0, float(np.abs(c).max()))
+    for d, nm_lo, nm_hi in [(0, "xmin", "xmax"), (1, "ymin", "ymax")]:
+        lo_ids = np.where(np.abs(c[:, d] - lo[d]) < tol)[0].astype(np.int32)
+        hi_ids = np.where(np.abs(c[:, d] - hi[d]) < tol)[0].astype(np.int32)
+        disc.node_sets[nm_lo] = lo_ids
+        disc.node_sets[nm_hi] = hi_ids
+        for nm, ids in [(nm_lo, lo_ids), (nm_hi, hi_ids)]:
+            ids_sorted = ids[np.argsort(c[ids, 1 - d])]
+            disc.face_sets[nm] = [FaceBlock("line2", np.stack(
+                [ids_sorted[:-1], ids_sorted[1:]], axis=1).astype(np.int32))]
     disc.node_sets["all"] = np.arange(disc.n_nodes, dtype=np.int32)

@@ -1,25 +1,27 @@
 """Input decks: YAML with the reference's section semantics, the subset of
-the structure, thermo, scatra and TSI problems.
+the structure, thermo, scatra, TSI, fluid, ALE and fluid-on-ALE problems.
 
 Counterpart of fourc_tpu/io/deck.py for the decks the port runs: the same
 schema (``param``/``group``/``validate``/``describe``), the same defaults
 and the same ValueError on a malformed deck, for the sections of a
-structure, thermo, scatra or TSI problem (``problem``,
-``structural_dynamic``, ``thermal_dynamic``, ``scatra_dynamic``,
-``tsi_dynamic``, ``solver``, ``io``, ``materials``, ``functions`` (an
+structure, thermo, scatra, TSI, fluid, ALE or fluid-on-ALE problem
+(``problem``, ``structural_dynamic``, ``thermal_dynamic``,
+``scatra_dynamic``, ``tsi_dynamic``, ``fluid_dynamic``, ``ale_dynamic``,
+``solver``, ``io``, ``materials``, ``functions`` (an
 expression per component, or a ``multifunction`` of time), ``geometry``,
 ``conditions`` (a condition's ``field`` names the field it acts on, e.g.
 ``thermo`` on a TSI deck's one mesh), ``result_description``, ``title``).
 Geometry comes from the ``box``
-generator (with ``jitter`` and ``permute``) or from explicit ``nodes``,
-``elements``, ``node_sets`` and ``face_sets``; conditions are ``dirichlet``,
-``neumann``, ``body_force``, ``spring_dashpot`` and ``constraint`` (its
-faces and nodes resolved to the mesh's sets, the rest as written; the
-structure driver refuses the kinds it does not carry).  Whatever else the
-reference reads (another field's section, another generator, ``exodus``, two generators of one mesh, another
-condition kind, a problem type other than structure, thermo, scatra and
-tsi, a FUNCT of another kind) raises NotImplementedError naming it as not
-ported.
+generator (with ``jitter`` and ``permute``), the 2D ``rectangle`` generator
+(quad4) or from explicit ``nodes``, ``elements``, ``node_sets`` and
+``face_sets``; conditions are ``dirichlet``, ``neumann``, ``body_force``,
+``spring_dashpot``, ``constraint``, ``ale_dirichlet`` (prescribed mesh
+motion) and ``windkessel_outflow`` (its faces and nodes resolved to the
+mesh's sets, the rest as written; each driver refuses the kinds it does not
+carry).  Whatever else the reference reads (another field's section,
+another generator, ``exodus``, two generators of one mesh, another
+condition kind, another problem type, a FUNCT of another kind) raises
+NotImplementedError naming it as not ported.
 
 Deck layout (one YAML document):
 
@@ -233,6 +235,19 @@ DECK_SPEC = {
                                                  "bdf2", "genalpha")),
     "thermal_dynamic": _dyn_spec("statics", ("statics", "onesteptheta",
                                              "genalpha")),
+    "fluid_dynamic": _dyn_spec("onesteptheta", ("stationary", "onesteptheta",
+                                               "bdf2", "genalpha")),
+    "ale_dynamic": group(
+        {
+            "method": param(str, "laplace", choices=("laplace", "elastic"),
+                            doc="mesh smoothing operator (ref ALE_TYPE)"),
+            "timestep": param(float, 1.0),
+            "numstep": param(int, 1),
+            "tolres": param(float, 1e-8, doc="CG tolerance"),
+            "maxiter": param(int, 400, doc="CG max iterations"),
+        },
+        doc="ALE DYNAMIC (pure mesh-motion problem)",
+    ),
     "tsi_dynamic": group(
         {
             "coupling": param(str, "monolithic",
@@ -284,8 +299,8 @@ DECK_SPEC = {
 # problems, none of them ported
 UNPORTED_SECTIONS = (
     "poro_pressure_dynamic",
-    "fluid_dynamic", "fsi_dynamic", "ssi_dynamic", "xfluid_dynamic",
-    "xfsi_dynamic", "ale_dynamic", "levelset_dynamic", "particle_dynamic",
+    "fsi_dynamic", "ssi_dynamic", "xfluid_dynamic",
+    "xfsi_dynamic", "levelset_dynamic", "particle_dynamic",
     "brownian_dynamics", "fbi_dynamic", "immersed_dynamic", "fpsi_dynamic",
     "fs3i_dynamic", "ehl_dynamic", "sti_dynamic", "ssti_dynamic",
     "cardiovascular0d", "artery_dynamic", "loma_dynamic",
@@ -293,14 +308,16 @@ UNPORTED_SECTIONS = (
     "lubrication_dynamic", "poroelasticity_dynamic",
     "cloning", "particles",
 )
-PROBLEM_TYPES = ("structure", "thermo", "scatra", "tsi")  # the ported ones
-UNPORTED_GENERATORS = ("line", "sheet", "kl_patch", "nurbs_patch", "rectangle")
+PROBLEM_TYPES = ("structure", "thermo", "scatra", "tsi", "fluid", "ale",
+                 "fluid_ale")  # the ported ones
+UNPORTED_GENERATORS = ("line", "sheet", "kl_patch", "nurbs_patch")
 UNPORTED_CONDITIONS = (
-    "fsi_interface", "point_neumann", "ale_dirichlet",
-    "bts_surface_contact", "particle_wall", "windkessel_outflow", "meshtying",
-    "beam_contact", "periodic", "embedded_mesh", "electrode_kinetics",
-    "contact",
+    "fsi_interface", "point_neumann", "bts_surface_contact", "particle_wall",
+    "meshtying", "beam_contact", "periodic", "embedded_mesh",
+    "electrode_kinetics", "contact",
 )
+CONDITIONS = ("dirichlet", "neumann", "body_force", "spring_dashpot",
+              "constraint", "ale_dirichlet", "windkessel_outflow")
 
 
 @dataclass
@@ -403,16 +420,24 @@ def _build_geometry(geo: dict) -> dict:
             mat = g.pop("mat", 1)
             if kind in UNPORTED_GENERATORS:
                 raise NotImplementedError(
-                    f"geometry.generator kind {kind!r} is not ported (box is)")
-            if kind != "box":
+                    f"geometry.generator kind {kind!r} is not ported (box "
+                    f"and rectangle are)")
+            if kind == "rectangle":
+                d = gridgen.rectangle(
+                    int(g.pop("nx")), int(g.pop("ny")),
+                    lo=tuple(g.pop("lo", (0, 0))),
+                    hi=tuple(g.pop("hi", (1, 1))),
+                    cell=g.pop("cell", "quad4"), name=name, mat_id=mat)
+            elif kind != "box":
                 raise ValueError(f"unknown generator kind {kind!r}")
-            jitter = float(g.pop("jitter", 0.0))
-            permute = bool(g.pop("permute", False))
-            d = gridgen.box(
-                int(g.pop("nx")), int(g.pop("ny")), int(g.pop("nz")),
-                lo=tuple(g.pop("lo", (0, 0, 0))), hi=tuple(g.pop("hi", (1, 1, 1))),
-                cell=g.pop("cell", "hex8"), name=name, mat_id=mat,
-            )
+            jitter = float(g.pop("jitter", 0.0)) if kind == "box" else 0.0
+            permute = bool(g.pop("permute", False)) if kind == "box" else False
+            if kind == "box":
+                d = gridgen.box(
+                    int(g.pop("nx")), int(g.pop("ny")), int(g.pop("nz")),
+                    lo=tuple(g.pop("lo", (0, 0, 0))),
+                    hi=tuple(g.pop("hi", (1, 1, 1))),
+                    cell=g.pop("cell", "hex8"), name=name, mat_id=mat)
             if jitter or permute:
                 # deterministic general-topology deck variants: jitter
                 # interior coords (xjitter of the element size) and/or
@@ -476,23 +501,30 @@ def _build_conditions(conds: dict, discs: dict) -> dict:
         for item in items:
             if key in UNPORTED_CONDITIONS:
                 raise NotImplementedError(
-                    f"conditions.{key} is not ported (dirichlet, neumann, "
-                    f"body_force, spring_dashpot and constraint are)")
-            if key not in ("dirichlet", "neumann", "body_force",
-                           "spring_dashpot", "constraint"):
+                    f"conditions.{key} is not ported "
+                    f"({', '.join(CONDITIONS)} are)")
+            if key not in CONDITIONS:
                 raise ValueError(f"unknown condition kind {key!r}")
             item = dict(item)
             fieldname = item.pop("field", None) or next(iter(discs))
             disc = discs.get(fieldname) or next(iter(discs.values()))
             f = out.setdefault(fieldname, {"dirichlet": [], "neumann": [],
                                            "body_force": []})
-            if key == "dirichlet":
-                f["dirichlet"].append(
+            if key in ("dirichlet", "ale_dirichlet"):
+                f.setdefault(key, []).append(
                     DirichletBC(
                         _resolve_nodes(disc, item["nodes"]),
                         onoff=item["onoff"], val=item["val"], funct=item.get("funct"),
                     )
                 )
+            elif key == "windkessel_outflow":
+                f.setdefault("windkessel", []).append({
+                    "faces": _resolve_faces(disc, item["faces"]),
+                    "r1": float(item.get("r1", 0.0)),
+                    "r2": float(item.get("r2", 1.0)),
+                    "c": float(item.get("c", 1.0)),
+                    "p0": float(item.get("p0", 0.0)),
+                })
             elif key == "body_force":
                 f["body_force"].append(BodyForce(val=item["val"],
                                                  funct=item.get("funct")))

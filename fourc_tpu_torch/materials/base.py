@@ -33,6 +33,11 @@ UNPORTED_MATERIALS = {
     "soret": "thermodiffusion of scatra-thermo interaction",
     "ion": "electrochemistry", "newman": "electrochemistry",
     "electrode": "electrochemistry",
+    **{name: "a non-Newtonian fluid law: the fluid residual reads a "
+       "constant viscosity" for name in ("carreauyasuda", "modpowerlaw",
+                                         "herschelbulkley")},
+    **{name: "a low-Mach fluid law" for name in ("sutherland",
+                                                  "murnaghantait")},
 }
 
 

@@ -1,4 +1,4 @@
-"""Element geometry helpers and leading-index 3x3 algebra.
+"""Element geometry helpers and leading-index 2x2 and 3x3 algebra.
 
 Counterpart of the subset of fourc_tpu/ops/common.py that the lattice slice
 uses.  The isoparametric helpers run once at setup on the host in float64
@@ -15,8 +15,9 @@ import torch
 
 
 def iso_gradients(Xe, dN):
-    """Xe (E, nen, 3) reference coords, dN (ngp, nen, 3) parametric grads.
-    Returns G (E, ngp, nen, 3) cartesian grads and detJ (E, ngp)."""
+    """Xe (E, nen, d) reference coords, dN (ngp, nen, d) parametric grads
+    (d = 2 or 3).  Returns G (E, ngp, nen, d) cartesian grads and detJ
+    (E, ngp)."""
     J = np.einsum("eai,gaj->egij", Xe, dN)  # J[e,g,i,j] = dx_i / dxi_j
     detJ = np.linalg.det(J)
     G = np.einsum("gaj,egji->egai", dN, np.linalg.inv(J))
@@ -34,10 +35,14 @@ def weighted(detJ, weights):
 
 
 def surface_measure(Xf, dNf):
-    """Area jacobian and unit normal of 3D faces at Gauss points.
-    Xf (F, nen_f, 3), dNf (ngp, nen_f, 2) -> (F, ngp), (F, ngp, 3)."""
+    """Area (3D faces) or length (2D edges) jacobian and unit normal at
+    Gauss points.  Xf (F, nen_f, d), dNf (ngp, nen_f, d-1) -> (F, ngp),
+    (F, ngp, d); a 2D edge of tangent t has the normal (t_y, -t_x)."""
     t = np.einsum("eai,gap->egip", Xf, dNf)
-    n = np.cross(t[..., 0], t[..., 1])
+    if Xf.shape[-1] == 3:
+        n = np.cross(t[..., 0], t[..., 1])
+    else:
+        n = np.stack([t[..., 1, 0], -t[..., 0, 0]], axis=-1)
     dA = np.linalg.norm(n, axis=-1)
     return dA, n / (dA[..., None] + 1e-300)
 
@@ -70,6 +75,19 @@ def cof3l(a):
          a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]],
     ]
     return torch.stack([torch.stack(r) for r in rows])
+
+
+def det2l(a):
+    """(2, 2, ...) -> (...)."""
+    return a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]
+
+
+def inv2l(a, det=None):
+    """Inverse of a (2, 2, ...) tensor via the adjugate."""
+    if det is None:
+        det = det2l(a)
+    return torch.stack([torch.stack([a[1, 1], -a[0, 1]]),
+                        torch.stack([-a[1, 0], a[0, 0]])]) / det
 
 
 def inv3l(a, det=None):

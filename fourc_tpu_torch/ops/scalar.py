@@ -14,10 +14,10 @@ this plain PyTorch form is its port on every device.
 
 Layout: element batches with the element index last, as the solid's
 element route (ops/solid.py): nodal values (nen, E), shape-function
-gradients G (nen, 3, g, E) and wdet (g, E) from ``element_geometry`` (once
-per mesh), N (g, nen), vectors at the Gauss points (3, g, E), scalars
-there (g, E).  One scalar per node: the multi-species form (the
-reference's ``residual_multi``) is not ported.
+gradients G (nen, d, g, E) and wdet (g, E) from ``element_geometry`` (once
+per mesh), N (g, nen), vectors at the Gauss points (d, g, E), scalars
+there (g, E); d = 3, or 2 on a quad4 mesh.  One scalar per node: the
+multi-species form (the reference's ``residual_multi``) is not ported.
 
 Every sum over nodes, Gauss points or components goes term by term in a
 fixed order, square roots are correctly rounded (``gm.sqrt_rn``) and a
@@ -37,9 +37,23 @@ from fourc_tpu_torch.ops import common as gm
 TAU_KINDS = ("zero", "taylor", "franca_valentin")
 
 
-def _norm3(v):
-    """|v| of (3, ...) vectors, summed in order, correctly rounded."""
-    return gm.sqrt_rn(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+def _norm(v):
+    """|v| of (d, ...) vectors, summed in order, correctly rounded."""
+    return gm.sqrt_rn(_dot(v, v))
+
+
+def _dot(a, b):
+    """sum_i a[:, i] b[i] over the component axis of a (n, d, ...) and
+    b (d, ...), or of two (d, ...) tensors, summed in order."""
+    if a.dim() > b.dim():
+        out = a[:, 0] * b[0]
+        for i in range(1, b.shape[0]):
+            out = out + a[:, i] * b[i]
+        return out
+    out = a[0] * b[0]
+    for i in range(1, b.shape[0]):
+        out = out + a[i] * b[i]
+    return out
 
 
 def interp(N, ve):
@@ -52,7 +66,7 @@ def interp(N, ve):
 
 
 def nodal_gradient(G, ve):
-    """sum_a G[a] ve[a]: the gradient (3, g, E) of nodal values (nen, E)."""
+    """sum_a G[a] ve[a]: the gradient (d, g, E) of nodal values (nen, E)."""
     out = G[0] * ve[0]
     for a in range(1, G.shape[0]):
         out = out + G[a] * ve[a]
@@ -69,20 +83,14 @@ def _test(N, q):
 
 
 def _test_gradient(G, Q):
-    """sum_{i, g} G[a, i, g] Q[i, g]: (3, g, E) -> (nen, E), summed in the
+    """sum_{i, g} G[a, i, g] Q[i, g]: (d, g, E) -> (nen, E), summed in the
     order i, then g (the solid's ``_integrate``)."""
     out = None
-    for i in range(3):
+    for i in range(G.shape[1]):
         for g in range(G.shape[2]):
             term = G[:, i, g] * Q[i, g]
             out = term if out is None else out + term
     return out
-
-
-def _dot3(G, v):
-    """sum_i G[:, i] v[i] over the component axis: (nen, 3, g, E),
-    (3, g, E) -> (nen, g, E)."""
-    return G[:, 0] * v[0] + G[:, 1] * v[1] + G[:, 2] * v[2]
 
 
 def calc_tau(vel, diff, rhoc, h, dt, kind="taylor"):
@@ -91,10 +99,10 @@ def calc_tau(vel, diff, rhoc, h, dt, kind="taylor"):
     + 9 (4 D / h^2)^2)); ``franca_valentin`` (h^2 / (h^2 sigma xi1
     + (4 D / m_k) xi), m_k = 1/3, sigma = rhoc / dt, xi = max(Pe, 1) with
     Pe = m_k rhoc |u| h / (2 D), xi1 = max(2 D / (m_k sigma h^2), 1)).
-    dt None (or 0): the stationary form.  vel (3, g, E), h (g, E)."""
+    dt None (or 0): the stationary form.  vel (d, g, E), h (g, E)."""
     if kind in ("zero", "none"):
         return torch.zeros_like(h)
-    unorm = _norm3(vel)
+    unorm = _norm(vel)
     h2 = h * h
     if kind == "franca_valentin":
         mk = 1.0 / 3.0
@@ -120,17 +128,17 @@ def calc_tau(vel, diff, rhoc, h, dt, kind="taylor"):
 
 def char_length(vel, G, wdet):
     """The element length at the Gauss points, (g, E): the streamlength
-    2 |u| / sum_a |u_hat . grad N_a| where |u| > 1e-12, else V^(1/3)
-    (V the element's volume); V^(1/3) everywhere without a velocity."""
+    2 |u| / sum_a |u_hat . grad N_a| where |u| > 1e-12, else V^(1/d)
+    (V the element's volume); V^(1/d) everywhere without a velocity."""
     vol = wdet[0]
     for g in range(1, wdet.shape[0]):
         vol = vol + wdet[g]
-    h_vol = gm.pow_ieee(vol, 1.0 / 3.0).expand_as(wdet)
+    h_vol = gm.pow_ieee(vol, 1.0 / G.shape[1]).expand_as(wdet)
     if vel is None:
         return h_vol
-    unorm = _norm3(vel)
+    unorm = _norm(vel)
     uhat = vel / torch.clamp(unorm, min=1e-300)
-    ug = _dot3(G, uhat).abs()
+    ug = _dot(G, uhat).abs()
     denom = ug[0]
     for a in range(1, ug.shape[0]):
         denom = denom + ug[a]
@@ -143,25 +151,23 @@ def residual(G, wdet, N, phie, phidote, diff, rhoc, vel=None, reaction=None,
     """Element residual of the scalar weak form, (nen, E).
 
     phie, phidote (nen, E): nodal scalar and rate; diff a number or a
-    (3, 3) tensor (anisotropic conduction; SUPG then takes its mean
-    principal value); rhoc a number; vel (3, g, E) or None; reaction a
+    (d, d) tensor (anisotropic conduction; SUPG then takes its mean
+    principal value); rhoc a number; vel (d, g, E) or None; reaction a
     function phi -> r(phi) at the Gauss points or None; source (g, E) or
     None (``extra_source`` is added to it: TSI's heating)."""
     if extra_source is not None:
         source = extra_source if source is None else source + extra_source
-    gphi = nodal_gradient(G, phie)  # (3, g, E)
+    gphi = nodal_gradient(G, phie)  # (d, g, E)
     R = rhoc * interp(N, phidote)
     if vel is not None:
-        R = R + rhoc * (vel[0] * gphi[0] + vel[1] * gphi[1]
-                        + vel[2] * gphi[2])
+        R = R + rhoc * _dot(vel, gphi)
     if reaction is not None:
         R = R + reaction(interp(N, phie))
     if source is not None:
         R = R - source
     f = _test(N, wdet * R)
     if torch.is_tensor(diff) and diff.dim() == 2:
-        Dg = torch.stack([diff[d, 0] * gphi[0] + diff[d, 1] * gphi[1]
-                          + diff[d, 2] * gphi[2] for d in range(3)])
+        Dg = torch.stack([_dot(diff[d], gphi) for d in range(len(gphi))])
         diff_tau = float(torch.diagonal(diff).sum()) / diff.shape[0]
     else:
         Dg, diff_tau = diff * gphi, diff
@@ -169,7 +175,7 @@ def residual(G, wdet, N, phie, phidote, diff, rhoc, vel=None, reaction=None,
     if vel is not None and tau_kind not in ("zero", "none"):
         tau = calc_tau(vel, diff_tau, rhoc, char_length(vel, G, wdet), dt,
                        tau_kind)
-        ugw = _dot3(G, vel)  # u . grad w, (nen, g, E)
+        ugw = _dot(G, vel)  # u . grad w, (nen, g, E)
         q = wdet * tau * R
         supg = ugw[:, 0] * q[0]
         for g in range(1, q.shape[0]):
@@ -180,7 +186,7 @@ def residual(G, wdet, N, phie, phidote, diff, rhoc, vel=None, reaction=None,
 
 def surface_flux(Xf, q_gp, face_cell: CellType):
     """Consistent nodal loads of a prescribed flux on faces, on the host in
-    float64: Xf (F, nen_f, 3), q_gp (F, g) (positive into the domain) ->
+    float64: Xf (F, nen_f, d), q_gp (F, g) (positive into the domain) ->
     (F, nen_f)."""
     dA, _ = gm.surface_measure(Xf, face_cell.dN)
     return np.einsum("g,eg,ga,eg->ea", np.asarray(face_cell.gauss_weights),
@@ -197,14 +203,13 @@ def diffusion_diagonal(G, wdet):
     out = None
     for g in range(G.shape[2]):
         Gg = G[:, :, g]
-        term = wdet[g] * (Gg[:, 0] * Gg[:, 0] + Gg[:, 1] * Gg[:, 1]
-                          + Gg[:, 2] * Gg[:, 2])
+        term = wdet[g] * _dot(Gg.transpose(0, 1), Gg.transpose(0, 1))
         out = term if out is None else out + term
     return out
 
 
 def gp_coords(X, N):
-    """The Gauss points' coordinates (g, E, 3) of element coordinates
-    X (nen*3, E)."""
+    """The Gauss points' coordinates (g, E, d) of element coordinates
+    X (nen*d, E)."""
     nen, E = N.shape[1], X.shape[1]
-    return torch.einsum("ga,aiE->gEi", N, X.reshape(nen, 3, E))
+    return torch.einsum("ga,aiE->gEi", N, X.reshape(nen, -1, E))

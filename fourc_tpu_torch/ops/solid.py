@@ -192,28 +192,28 @@ def element_stiffness_rows(Xe, cell: CellType, lam: float, mu: float,
 
 
 def element_geometry(X, cell: CellType, chunk=4 * ELEMENT_CHUNK):
-    """Element batch coordinates X (nen*3, E) -> G (nen, 3, g, E), the
+    """Element batch coordinates X (nen*d, E) -> G (nen, d, g, E), the
     physical gradients of the shape functions at the Gauss points, and
     wdet (g, E), det J times the Gauss weight; in X's dtype and device,
-    chunk by chunk of elements."""
+    chunk by chunk of elements.  d = 3, or 2 for a quad4 mesh."""
     dN, w, _ = cell_tables(cell.name, X.device, X.dtype)
-    nen, E = cell.nen, X.shape[1]
-    Xt = X.reshape(nen, 3, E)
-    G = X.new_empty((nen, 3, cell.ngp, E))
+    nen, E, d = cell.nen, X.shape[1], cell.dim
+    det, inv = (gm.det3l, gm.inv3l) if d == 3 else (gm.det2l, gm.inv2l)
+    Xt = X.reshape(nen, d, E)
+    G = X.new_empty((nen, d, cell.ngp, E))
     wdet = X.new_empty((cell.ngp, E))
     for c0 in range(0, E, chunk):
         sl = slice(c0, min(c0 + chunk, E))
-        J = torch.einsum("aiE,gaj->ijgE", Xt[:, :, sl], dN)  # (3, 3, g, e)
-        detJ = gm.det3l(J)
-        G[:, :, :, sl] = torch.einsum("gaj,jigE->aigE", dN,
-                                      gm.inv3l(J, detJ))
+        J = torch.einsum("aiE,gaj->ijgE", Xt[:, :, sl], dN)  # (d, d, g, e)
+        detJ = det(J)
+        G[:, :, :, sl] = torch.einsum("gaj,jigE->aigE", dN, inv(J, detJ))
         wdet[:, sl] = detJ * w[:, None]
     return G, wdet
 
 
 def _grad(ut, G):
-    """Gradient of a nodal field at the Gauss points: ut (nen, 3, E),
-    G (nen, 3, g, E) -> H (3, 3, g, E), H[c, d] = sum_a u[a, c] G[a, d]."""
+    """Gradient of a nodal field at the Gauss points: ut (nen, c, E),
+    G (nen, d, g, E) -> H (c, d, g, E), H[c, d] = sum_a u[a, c] G[a, d]."""
     H = ut[0, :, None, None] * G[0][None]
     for a in range(1, G.shape[0]):
         H = H + ut[a, :, None, None] * G[a][None]
@@ -221,12 +221,12 @@ def _grad(ut, G):
 
 
 def _integrate(Q, G):
-    """f[a, i] = sum_{j, g} Q[i, j, g] G[a, j, g]: Q (3, 3, g, E) (the
-    weighted first Piola-Kirchhoff stress), G (nen, 3, g, E) ->
-    (nen, 3, E).  Summed term by term in a fixed order (j, then g), so that
+    """f[a, i] = sum_{j, g} Q[i, j, g] G[a, j, g]: Q (d, d, g, E) (the
+    weighted first Piola-Kirchhoff stress), G (nen, d, g, E) ->
+    (nen, d, E).  Summed term by term in a fixed order (j, then g), so that
     every device rounds alike (a reduction kernel sums in its own order)."""
     out = None
-    for j in range(3):
+    for j in range(G.shape[1]):
         for g in range(G.shape[2]):
             term = Q[None, :, j, g] * G[:, None, j, g]
             out = term if out is None else out + term

@@ -1,12 +1,12 @@
 """Global problem driver: deck -> field -> time loop -> result tests.
 
-Counterpart of fourc_tpu/physics/driver.py for structure, thermo, scatra
-and TSI problems: ``run`` dispatches a deck, ``time_loop`` advances a field
-with the reference's
-DIVERCONT handling, ``time_loop_adaptive`` with its error-controlled
-(Zienkiewicz-Xie) step size, ``newton_params_from`` maps the deck's Newton
-and solver settings.  Every other problem type, sharding over several
-devices and restarts are not ported.
+Counterpart of fourc_tpu/physics/driver.py for structure, thermo, scatra,
+TSI, fluid, ALE and fluid-on-ALE problems: ``run`` dispatches a deck,
+``time_loop`` advances a field with the reference's DIVERCONT handling,
+``time_loop_adaptive`` with its error-controlled (Zienkiewicz-Xie) step
+size, ``newton_params_from`` maps the deck's Newton and solver settings.
+Every other problem type, sharding over several devices and restarts are
+not ported.
 
 The host loop only calls step functions, reads the convergence flag they
 return, refines the time step on divergence and calls the callbacks; the
@@ -62,6 +62,18 @@ def run(deck_src, callbacks=None, device="cuda") -> RunResult:
         from fourc_tpu_torch.physics import tsi_driver
 
         return tsi_driver.run(deck, callbacks=callbacks, device=device)
+    if ptype == "fluid":
+        from fourc_tpu_torch.physics import fluid_driver
+
+        return fluid_driver.run(deck, callbacks=callbacks, device=device)
+    if ptype == "ale":
+        from fourc_tpu_torch.physics import ale_driver
+
+        return ale_driver.run(deck, callbacks=callbacks, device=device)
+    if ptype == "fluid_ale":
+        from fourc_tpu_torch.physics import fluid_ale_driver
+
+        return fluid_ale_driver.run(deck, callbacks=callbacks, device=device)
     raise NotImplementedError(
         f"problem type {ptype!r} is not ported "
         f"({', '.join(deck_mod.PROBLEM_TYPES)} are)")

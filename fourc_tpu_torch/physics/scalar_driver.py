@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fourc_tpu_torch.core.cells import FACE_TYPE, VOLUME_CELLS
 from fourc_tpu_torch.core.device import resolve_device
 from fourc_tpu_torch.materials import make_material
 from fourc_tpu_torch.ops.scalar import TAU_KINDS
@@ -36,15 +37,18 @@ def check_supported(deck, section, disc_name):
     if dyn["stab"] not in TAU_KINDS:
         out.append(f"{section}.stab {dyn['stab']!r}")
     disc = deck.disc.get(disc_name) or next(iter(deck.disc.values()))
-    if disc.dim != 3:
+    cells = VOLUME_CELLS.get(disc.dim)
+    if cells is None:
         out.append(f"a {disc.dim}D mesh")
     for key, blk in disc.blocks.items():
-        if blk.cell not in ("hex8", "tet4", "wedge6"):
+        if cells is not None and blk.cell not in cells:
             out.append(f"element block {key!r} of cell {blk.cell!r} in a "
-                       f"scalar field (hex8, tet4 and wedge6 are ported)")
+                       f"{disc.dim}D scalar field ({', '.join(cells)} "
+                       f"ported)")
     conds = deck.conditions.get(_field_of(section), {})
     for nb in conds.get("neumann", ()):
-        cells = sorted({fb.cell for fb in nb.faces} - {"quad4"})
+        cells = sorted({fb.cell for fb in nb.faces}
+                       - {FACE_TYPE.get(c) for c in cells or ()})
         if cells:
             out.append(f"neumann faces {cells}")
     for kind in ("spring_dashpot", "constraint"):

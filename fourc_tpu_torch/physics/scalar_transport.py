@@ -149,10 +149,11 @@ class ScalarField:
         if kind == "scatra":
             diff = m.diff()
             if isinstance(diff, np.ndarray):
-                if diff.shape != (3, 3):
+                d = self.disc.dim
+                if diff.shape != (d, d):
                     raise NotImplementedError(
                         f"element block {key!r}: a {diff.shape} "
-                        f"diffusivity on a 3D mesh")
+                        f"diffusivity on a {d}D mesh")
                 diff = torch.as_tensor(diff, dtype=self.dtype,
                                        device=self.device)
             return diff, float(m.capacity or 1.0), m.reaction
@@ -165,7 +166,7 @@ class ScalarField:
             f"are ported)")
 
     def _loads(self, t):
-        """{block: (velocity (3, g, E) or None, source (g, E) or None)} and
+        """{block: (velocity (d, g, E) or None, source (g, E) or None)} and
         the Neumann flux vector at time t, computed once per t."""
         if t not in self._at_t:
             per_block = {}
@@ -173,7 +174,7 @@ class ScalarField:
                 vel = None
                 if self._vel_fn is not None:
                     vel = torch.stack([self._vel_fn.on_device(xg, t, k)
-                                       for k in range(3)])
+                                       for k in range(self.disc.dim)])
                 src = None
                 for bf in self.body_forces:
                     s = bf.val[0] * self.functions.get(

@@ -660,7 +660,18 @@ FIELD_DECKS = {"decks/ref_converted/thermo_bar_dbc_genalpha.yaml": (3, 3, 100),
                "decks/tsi_partitioned_bar.yaml": (3, 3, 2044),
                "decks/ref_converted/solid_ele_hex8_standard_mulf.yaml":
                    (12, 12, 42),
-               "decks/mulf_prestress.yaml": (0, 3, 0)}
+               "decks/mulf_prestress.yaml": (0, 3, 0),
+               # slice 6a: the fluid, ALE and 2D scatra decks (the port's
+               # Newton iterations, tests/port/test_torch_deck.py)
+               "decks/fluid_cavity_stationary.yaml": (3, 3, 12),
+               "decks/fluid_poiseuille_ost.yaml": (3, 3, 134),
+               "decks/fluid_smagorinsky_decay.yaml": (3, 3, 18),
+               "decks/fluid_mfs_decay.yaml": (3, 3, 33),
+               "decks/windkessel_channel.yaml": (2, 2, 144),
+               "decks/ale_patch_motion.yaml": (3, 3, 0),
+               "decks/scatra_supg_skewflow.yaml": (2, 2, 6),
+               "decks/scatra_gaussian_diffusion.yaml": (2, 2, 48),
+               "decks/scatra_anisotropic_diffusion.yaml": (1, 1, 30)}
 
 
 def _states(run):
@@ -682,9 +693,9 @@ def _states(run):
 
 @pytest.mark.parametrize("path", list(FIELD_DECKS))
 def test_field_deck_on_the_card_matches_the_cpu(cuda, path):
-    """The seven decks of slice 5a: the card's state after every step
-    within 1e-11 of the CPU run's largest entry, the anchors and the
-    Newton iterations of FIELD_DECKS on both."""
+    """The seven decks of slice 5a and the nine of slice 6a: the card's
+    state after every step within 1e-11 of the CPU run's largest entry,
+    the anchors and the Newton iterations of FIELD_DECKS on both."""
     import os
 
     from fourc_tpu_torch.io.result_test import run_result_tests
@@ -729,3 +740,52 @@ def test_tsi_permuted_converges_and_launches_b6(cuda):
     assert not any(lk.launches.values())
     assert float((state["T"] - c.TSI_LAW["inittemp"]).max()) > 0
     assert torch.isfinite(state["d"]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fluid_residual_and_jacobian_on_the_card_match_the_cpu(cuda, dtype):
+    """The fluid residual and its Jacobian action on a 4x4x4 hex8 box
+    (cavity3d_ost's field, a random state): the card's are the CPU's
+    (float64 to 1e-13 of the largest entry, float32 to 1e-5)."""
+    import chip_smoke as c
+
+    from fourc_tpu_torch.physics import fluid as pf
+
+    out = {}
+    for device in (cuda, "cpu"):
+        f = c.cavity3d_problem(4, device, dtype)
+        gen = torch.Generator().manual_seed(0)
+        x, xdot, v = (torch.randn(f.ndof, generator=gen, dtype=dtype)
+                      .to(device) for _ in range(3))
+        r, apply = f.linearize(x, xdot, 0.1, dt=c.CAVITY_DT)
+        out[device] = [t.cpu() for t in (
+            r, apply(v, pf.zero_pressure_rate(f, v * 100.0)))]
+    for got, want in zip(out[cuda], out["cpu"]):
+        assert _rel(got, want) <= (1e-13 if dtype == torch.float64 else 1e-5)
+
+
+def test_cavity3d_ost_converges_on_the_card(cuda):
+    """cavity3d_ost at n=12 (chip_smoke phase 16 (b)): three float32
+    one-step-theta steps converge (Newton under its cap, no GMRES solve at
+    maxiter), the velocity stays bounded by the lid's and no kernel of
+    B1-B7 runs."""
+    import chip_smoke as c
+
+    from fourc_tpu_torch.physics import fluid as pf
+
+    f = c.cavity3d_problem(12, cuda, torch.float32)
+    state = pf.init_state(f)
+    step = pf.make_step(f, c.CAVITY_DT)
+    lk.reset_launches()
+    sk.reset_launches()
+    calls = []
+    with c._gmres_calls(calls):
+        for _ in range(3):
+            state, stats = step(state)
+            assert stats["converged"]
+            assert stats["iters"] < f.params.newton.max_iter
+    assert all(ok and it < f.params.newton.lin_maxiter for it, ok in calls)
+    u, _ = f.split(state["x"])
+    assert torch.isfinite(state["x"]).all()
+    assert 0.0 < float(u.abs().max()) <= 1.0 + 1e-6
+    assert not any(lk.launches.values()) and not any(sk.launches.values())

@@ -436,8 +436,8 @@ REFUSALS = {
         "swelling": 0.1}), "'scatra_stvenantkirchhoff' is not ported "
                            "(scatra-structure interaction)"),
     "rectangle": (_scatra_deck({"type": "scatra", "diffusivity": 1.0}, {
-        "kind": "rectangle", "nx": 4, "ny": 4, "cell": "quad4", "mat": 1,
-        "name": "scatra"}), "generator kind 'rectangle' is not ported"),
+        "kind": "rectangle", "nx": 4, "ny": 4, "cell": "quad9", "mat": 1,
+        "name": "scatra"}), "rectangle cell 'quad9' is not ported"),
     "elch_problem": ({**_scatra_deck({"type": "scatra", "diffusivity": 1.0}),
                       "problem": {"type": "elch"}},
                      "problem type 'elch' is not ported"),

@@ -16,7 +16,9 @@ under EAS with CG, chip_smoke.py phase 11 (b), (c); ``visco``, ``j2`` and
 plastic ones after its elastic step that sets the yield stress or the
 slip resistance, ``growthremodel``, ``mixture`` and ``blemker`` under
 those of phase 14 (b)-(d); ``tsi`` the monolithic TSI box of
-chip_smoke.py phase 15 (b), its step from ``tsi_driver.make_step``), runs
+chip_smoke.py phase 15 (b), its step from ``tsi_driver.make_step``;
+``cavity`` the 3D lid-driven cavity ``cavity3d_ost`` of chip_smoke.py
+phase 16 (b), full size n=64, its step from ``fluid.make_step``), runs
 two warm-up steps, then traces ``steps`` steps (default 2) with
 torch.profiler.  Prints the device-time table by kernel, the device busy
 share (summed kernel time over the host wall time of the traced steps) and
@@ -69,6 +71,11 @@ def main():
 
         f = cs.tsi_problem(n, "cuda", torch.float32, n_steps=2 * n_steps + 2)
         step = td.make_step(f, cs.TSI_DT)
+    elif mesh == "cavity":
+        from fourc_tpu_torch.physics import fluid as pf
+
+        f = cs.cavity3d_problem(n, "cuda", torch.float32)
+        step = pf.make_step(f, cs.CAVITY_DT)
     elif mesh in meshes:
         f = cs.build_problem(n, "cuda", torch.float32, *meshes[mesh])
         prepare = cs.prepare_for(mesh, laws[mesh]) if mesh in laws else None
@@ -77,10 +84,14 @@ def main():
         step = cs.make_step(f, mesh)
     else:
         raise ValueError(f"mesh must be one of "
-                         f"{list(meshes) + ['explicit', 'tsi']}, not "
+                         f"{list(meshes) + ['explicit', 'tsi', 'cavity']}, not "
                          f"{mesh!r}")
-    state = (td.init_state(f) if mesh == "tsi"
-             else ps.compute_initial_state(f, ps.init_state(f)))
+    if mesh == "tsi":
+        state = td.init_state(f)
+    elif mesh == "cavity":
+        state = pf.init_state(f)
+    else:
+        state = ps.compute_initial_state(f, ps.init_state(f))
     for _ in range(2):
         state, _ = step(state)
     torch.cuda.synchronize()
